@@ -1,0 +1,109 @@
+"""sora_tpu_torch stands alone and never runs quietly on the CPU.
+
+* Importing every module of the package pulls in neither JAX nor any
+  module of the JAX package ``sora_tpu`` (checked in a fresh process).
+* No source of the package, nor chip_smoke.py, imports them.
+* Entry points that take host data default to CUDA and raise without it.
+* The kernel module imports without nvcc, and a build without nvcc raises.
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import sora_tpu_torch
+from sora_tpu_torch.ops import viterbi_cuda as vc
+from sora_tpu_torch.phy.dot11a import rx as trx
+from sora_tpu_torch.util import xfer
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "sora_tpu_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import sora_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sora_tpu_torch.__path__,
+                                               "sora_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.")
+       or m == "sora_tpu" or m.startswith("sora_tpu.")]
+print(len(names), bad)
+"""
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|sora_tpu)\b(?!_)|from\s+(jax|sora_tpu)\b(?!_))",
+    re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        sora_tpu_torch.__path__, "sora_tpu_torch."))
+
+
+def test_package_imports_no_jax_nor_sora_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.split(maxsplit=1)
+    assert int(n) == len(_modules()) >= 15
+    assert bad.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
+                                        ROOT / "chip_smoke.py"]))
+def test_source_has_no_jax_or_sora_tpu_import(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), path
+
+
+def test_forbidden_pattern_spares_the_port_itself():
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from sora_tpu.dsp import crc")
+    assert _FORBIDDEN.search("  import sora_tpu")
+    assert not _FORBIDDEN.search("from sora_tpu_torch.dsp import crc")
+    assert not _FORBIDDEN.search("import sora_tpu_torch")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros(600, np.complex64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfer.device_complex(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trx.demodulate(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfer.device_complex(x, "cuda")
+    # the CPU only when asked for
+    assert xfer.device_complex(x, "cpu").device.type == "cpu"
+    assert trx.demodulate(x, device="cpu").reason == "cs_timeout"
+
+
+def test_kernel_module_imports_without_nvcc():
+    env = dict(os.environ, PATH="/nonexistent")
+    env.pop("CUDA_HOME", None)
+    code = ("import sora_tpu_torch.ops.viterbi_cuda as vc; "
+            "print(vc.LAUNCHES)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "0"
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(vc.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(vc.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        vc.build(force=True)
