@@ -10,7 +10,12 @@ Phases (any failure raises and the script exits nonzero):
    for sm_90a (forced, from the sources in the checkout);
 3. the kernel against its plain PyTorch version on the card, bit for bit,
    in the three window regimes of ``decode_auto``, ``terminated`` both
-   ways, noise sigma 0.25 and 0.9, and at the bench shape (128, 12096);
+   ways, on noisy codewords (sigma 0.25 and 0.9) and on tie-heavy input
+   (all-zero soft values, every 7th step erased, |soft| beyond the +-7
+   clamp); at the 24-step SIGNAL shape (block 24, overlap 0); at batch
+   sizes that leave a ragged last block of warps (1 and 33 streams); on a
+   non-contiguous and on a misaligned input; and at the bench shape
+   (128, 12096);
 4. the main path at full width: ``rx_pipeline(x, 54, max_psdu=1504)`` on
    128 streams of the 54 Mbps capture ``tests/data/fsample54.dmp``
    (decimated to 20 Msps, N = 5452 samples, T = 56*216 = 12096 trellis
@@ -18,9 +23,10 @@ Phases (any failure raises and the script exits nonzero):
    every row must decode, all PSDUs equal and FCS-valid, and the first
    rows must agree with the same chain run on the CPU; then timings
    (CUDA events after warm-up) of the chain (median of 5 windows of 20
-   batches), its latency (100 batches), its stages, the kernel and the
-   plain version; and the chain's device kernel time per batch from
-   torch.profiler (its idle share against the event time);
+   batches), its latency (100 batches), its stages, the kernel (replays of
+   a CUDA graph of 50 launches) and the plain version; and the chain's
+   device kernel time per batch from torch.profiler (its idle share
+   against the event time);
 5. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -41,11 +47,16 @@ ROOT = Path(__file__).resolve().parent
 CAPTURE = ROOT / "tests" / "data" / "fsample54.dmp"
 RATE, PSDU_LEN, BATCH, MAX_PSDU = 54, 1500, 128, 1504
 
-# Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
-# data sheet): HBM bandwidth, and the 32-bit rate outside the tensor
-# cores, used for the kernel's integer add-compare-select work.
+# The card's peaks for the kernel's bound: HBM bandwidth of one H100 SXM
+# (NVIDIA's data sheet, at the full 700 W limit), and its int32 issue rate:
+# 64 INT32 lanes per SM (Hopper architecture white paper) times the SMs
+# times the SM clock (nvidia-smi's clocks.max.sm; 1.98 GHz published boost).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
+BOOST_SM_HZ = 1.98e9
+# int32 operations of one exact Viterbi window step: a radix-2
+# add-compare-select per state (2 adds, 1 min) for 64 states
+ACS_OPS_PER_STEP = 64 * 3
 
 
 def card_line() -> str:
@@ -54,6 +65,19 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def max_sm_hz() -> float:
+    """The card's maximum SM clock in Hz (nvidia-smi), else the published
+    boost clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    try:
+        return float(out.splitlines()[0]) * 1e6
+    except (IndexError, ValueError):
+        return BOOST_SM_HZ
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -69,6 +93,21 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of fn() from replays of a CUDA
+    graph of reps calls, so that the host's work per call is not timed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 3) / reps
 
 
 def profile_device(fn, reps: int):
@@ -138,6 +177,18 @@ def noisy_soft(B: int, T: int, sigma: float, seed: int):
     return torch.from_numpy(soft.astype(np.float32))
 
 
+def tie_heavy(T: int, seed: int):
+    """Soft pairs (16, T, 2) that force ties and saturation: all zero,
+    noisy codewords with every 7th step erased, and codewords scaled
+    beyond the +-7 quantizer clamp."""
+    import torch
+
+    erased = noisy_soft(16, T, 0.9, seed)
+    erased[:, ::7] = 0.0
+    return {"zeros": torch.zeros(16, T, 2), "erased7": erased,
+            "saturated": 4.0 * noisy_soft(16, T, 0.75, seed + 1)}
+
+
 def auto_window(T: int):
     """(block, overlap) that dsp.viterbi.decode_auto picks for T steps."""
     if T > 1024:
@@ -179,23 +230,43 @@ def main() -> int:
 
     # ---- 3. kernel against the plain version --------------------------------
     max_err = 0
+
+    def parity(name, soft, block, overlap, terminated):
+        nonlocal max_err
+        got = vc.decode_blocks(soft, block, overlap, terminated)
+        want = vc.decode_blocks_reference(soft, block, overlap, terminated)
+        bad = int((got != want).sum())
+        print(f"parity {name} {tuple(soft.shape)} block={block} "
+              f"overlap={overlap} terminated={terminated}: {bad} mismatches",
+              flush=True)
+        if bad:
+            raise AssertionError("kernel disagrees with the plain version")
+        max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+
     for T in (203, 1500, 4200):
         block, overlap = auto_window(T)
         for terminated in (True, False):
             for sigma in (0.25, 0.9):
-                soft = noisy_soft(16, T, sigma, seed=T).to(dev)
-                got = vc.decode_blocks(soft, block, overlap, terminated)
-                want = vc.decode_blocks_reference(soft, block, overlap,
-                                                  terminated)
-                bad = int((got != want).sum())
-                print(f"parity T={T} block={block} overlap={overlap} "
-                      f"terminated={terminated} sigma={sigma}: "
-                      f"{bad} mismatches", flush=True)
-                if bad:
-                    raise AssertionError("kernel disagrees with the plain "
-                                         "version")
-                max_err = max(max_err, int((got.int() - want.int()).abs()
-                                           .max()))
+                parity(f"sigma={sigma}", noisy_soft(16, T, sigma, seed=T).to(
+                    dev), block, overlap, terminated)
+            for kind, soft in tie_heavy(T, seed=T).items():
+                parity(kind, soft.to(dev), block, overlap, terminated)
+    signal = noisy_soft(BATCH, 24, 0.9, seed=24)
+    signal[:, ::5] = 0.0
+    parity("SIGNAL", signal.to(dev), 24, 0, True)
+    parity("ragged", noisy_soft(1, 4200, 0.9, seed=1).to(dev), 1024, 64,
+           True)
+    parity("ragged", noisy_soft(33, 1500, 0.9, seed=33).to(dev), 512, 64,
+           False)
+    parity("ragged", noisy_soft(33, 203, 0.9, seed=203).to(dev), 208, 0,
+           True)
+    pairs_last = noisy_soft(16, 1500, 0.9, seed=5).to(dev)
+    parity("non-contiguous",
+           pairs_last.transpose(1, 2).contiguous().transpose(1, 2), 512, 64,
+           True)
+    flat = torch.empty(16 * 1500 * 2 + 1, device=dev)
+    flat[1:] = pairs_last.reshape(-1)
+    parity("misaligned", flat[1:].view(16, 1500, 2), 512, 64, True)
 
     x = saturated_batch(BATCH)
     N = x.shape[1]
@@ -213,13 +284,7 @@ def main() -> int:
     bench_inputs = {"main-path soft": ab,
                     "sigma 0.9 soft": noisy_soft(BATCH, T, 0.9, 7).to(dev)}
     for name, soft in bench_inputs.items():
-        got = vc.decode_blocks(soft, block, overlap, True)
-        want = vc.decode_blocks_reference(soft, block, overlap, True)
-        bad = int((got != want).sum())
-        print(f"parity bench shape {tuple(soft.shape)} {name}: "
-              f"{bad} mismatches", flush=True)
-        if bad:
-            raise AssertionError("kernel disagrees with the plain version")
+        parity(f"bench shape {name}", soft, block, overlap, True)
 
     # ---- 4. the main path ----------------------------------------------------
     vc.LAUNCHES = 0
@@ -281,7 +346,9 @@ def main() -> int:
     bits = vc.decode_blocks(ab, block, overlap, True)
     stage_ms["finish_frame"] = cuda_ms(
         lambda: rx._finish_frame(bits, length, T), 20)
-    kernel_ms = stage_ms["viterbi"]
+    # the kernel alone: the wrapper's host work per call is not timed
+    kernel_ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True),
+                         50)
     plain_ms = cuda_ms(lambda: vc.decode_blocks_reference(
         ab, block, overlap, True), 3)
     print(f"rx_pipeline: {chain_ms:.3f} ms/batch back to back (events, "
@@ -307,17 +374,28 @@ def main() -> int:
             print(f"  {ms:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
 
     nwin = BATCH * (-(-T // block))
-    nstep = (block + 2 * overlap) // 4
-    ops = nwin * nstep * 1024 * 3        # candidates x (sub, pack, min)
+    win = block + 2 * overlap
+    ops = nwin * win * ACS_OPS_PER_STEP        # radix-2 ACS, any exact decoder
+    ops_radix4 = nwin * (win // 4) * 1024 * 3  # the TPU's 1024 candidates
+    sm_hz = max_sm_hz()
+    int32_ops_per_s = (INT32_LANES_PER_SM
+                       * torch.cuda.get_device_properties(0)
+                       .multi_processor_count * sm_hz)
     nbytes = BATCH * T * 2 * 4 + BATCH * T    # fp32 soft in, uint8 bits out
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_OPS_PER_S
-                else "operations")
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / int32_ops_per_s * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms > ops_ms else "operations"
     print(f"viterbi kernel ({BATCH}, {T}) block {block} overlap {overlap}: "
-          f"{kernel_ms:.4f} ms = {BATCH * T / kernel_ms / 1e3:.1f} Mbit/s; "
+          f"{kernel_ms:.4f} ms (graph replay) = "
+          f"{BATCH * T / kernel_ms / 1e3:.1f} Mbit/s; "
           f"plain version {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}: {ops / 1e9:.3f} G ops, {nbytes / 1e6:.2f} MB)",
-          flush=True)
+          f"({bound_by}: {ops / 1e9:.4f} G int32 ops of radix-2 ACS at "
+          f"{int32_ops_per_s / 1e12:.2f} T/s (SM clock {sm_hz / 1e9:.3f} "
+          f"GHz) = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB = {bytes_ms:.4f} "
+          f"ms; the TPU formulation's radix-4 count was "
+          f"{ops_radix4 / 1e9:.4f} G ops); time/bound "
+          f"{kernel_ms / bound_ms:.2f}", flush=True)
 
     summary = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s,
@@ -329,12 +407,18 @@ def main() -> int:
                "stage_ms": stage_ms, "device_kernel_ms": dev_ms,
                "device_idle_share": idle,
                "device_launches_per_batch": dev_launches,
-               "viterbi_mbit_per_s": BATCH * T / kernel_ms / 1e3}
+               "viterbi_mbit_per_s": BATCH * T / kernel_ms / 1e3,
+               "viterbi_bound_ms": bound_ms, "viterbi_int32_ops": ops,
+               "viterbi_radix4_ops": ops_radix4, "sm_hz": sm_hz}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
         "source": "sora_tpu_torch/csrc/viterbi.cu",
         "replaces": "sora_tpu/ops/viterbi_pallas.py:218",
+        "design": "radix-2 butterfly walk: four radix-2 sub-steps per "
+                  "radix-4 step, register branch metrics, shuffled "
+                  "butterflies, survivor marks in the packed key for a "
+                  "three-lane traceback, soft values prefetched in chunks",
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]}

@@ -21,6 +21,10 @@ decode_blocks`` (its ``pl.pallas_call`` of ``_kernel``), bit for bit:
 * the end state is the lowest-index minimum, and the traceback reads
   bits (state>>2)&1 .. state>>5 then steps to 16*(state&3) + d.
 
+The kernel computes each radix-4 step as four radix-2 sub-steps on the
+same packed keys (equal bit for bit, see the note at the head of
+``csrc/viterbi.cu``); the plain version keeps the TPU's formulation.
+
 The kernel is ``csrc/viterbi.cu``, built with nvcc for ``sm_90a`` into a
 shared library with a C interface (loaded with ctypes) under ``_build/``
 at first use, and rebuilt when the source is newer.  :func:`decode_blocks`
@@ -253,6 +257,8 @@ def decode_blocks(soft_ab: torch.Tensor, block: int = 512,
     lead = soft_ab.shape[:-2]
     T = soft_ab.shape[-2]
     s = soft_ab.reshape(-1, T, 2).to(torch.float32).contiguous()
+    if s.data_ptr() % 8:                 # the kernel reads (sA, sB) as float2
+        s = s.clone()
     B = s.shape[0]
     out = torch.empty(B, T, dtype=torch.uint8, device=s.device)
     if B == 0 or T == 0:
