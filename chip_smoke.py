@@ -27,10 +27,33 @@ Phases (any failure raises and the script exits nonzero):
    a CUDA graph of 50 launches) and the plain version; and the chain's
    device kernel time per batch from torch.profiler (its idle share
    against the event time);
-5. a JSON line of the kernels, the card line, and as the last line
+5. TX: ``tx.modulate`` on the card and on the CPU for all 8 rates (16
+   PSDUs of 1500 bytes each), equal within 1e-5; the card's waveforms
+   decode through the card's ``rx_pipeline`` at their rate;
+6. the mixed-rate path at full width: ``rx_pipeline_auto(x, max_psdu=
+   1504)`` on 128 streams, 16 per rate, each one 1500-byte frame from the
+   card's TX plus noise at 0.02 in a 40736-sample window: every row ``ok``
+   with its rate and PSDU, the first 8 rows (one per rate) equal to the
+   CPU run, and the kernel equal to the plain version on this path's own
+   Viterbi input;
+7. the front end: ``rx_pipeline(x40, 54, max_psdu=1504, input_rate=
+   "40m")`` on 128 streams of the raw 40 Msps capture: every row decodes,
+   the first 4 rows equal the CPU run;
+8. the device-resident air, saturated 54 Mbps rx soak at the canonical
+   configuration (``tools/realtime_soak.py``): one round under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a round makes no host
+   sync), the kernel against the plain version and its time on that
+   round's own Viterbi input (448, 12096), the round's device time from
+   torch.profiler, then ``run_rx_soak`` over 10 s of air with every frame
+   position-matched and one kernel launch per round;
+9. the two-node conversation (``run_convo``) over 5 s of air: something
+   acked and delivered;
+10. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-It imports nothing of JAX or of the JAX package.
+Every path is driven with the kernel's launch counter set to 0 just before
+and read just after, and fails if the kernel was not launched.  It imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +70,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 CAPTURE = ROOT / "tests" / "data" / "fsample54.dmp"
 RATE, PSDU_LEN, BATCH, MAX_PSDU = 54, 1500, 128, 1504
+RATES = (6, 9, 12, 18, 24, 36, 48, 54)
+MIXED_N = 40736           # the 6 Mbps 1500-byte frame (40480) + 256
+TX_ATOL = 1e-5            # card against CPU TX (unit-power samples)
+SOAK_SECONDS, CONVO_SECONDS, SOAK_DEPTH = 10.0, 5.0, 6
 
 # The card's peaks for the kernel's bound: HBM bandwidth of one H100 SXM
 # (NVIDIA's data sheet, at the full 700 W limit), and its int32 issue rate:
@@ -196,6 +224,286 @@ def auto_window(T: int):
     return -(-T // 8) * 8, 0
 
 
+def viterbi_bound(B: int, T: int, block: int, overlap: int,
+                  int32_ops_per_s: float) -> dict:
+    """The least time of the decode: radix-2 ACS int32 operations of every
+    window step at the int32 issue rate, or the bytes (fp32 soft in, uint8
+    bits out) at the HBM rate, whichever is larger."""
+    nwin = B * (-(-T // block))
+    win = block + 2 * overlap
+    ops = nwin * win * ACS_OPS_PER_STEP
+    nbytes = B * T * 2 * 4 + B * T
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / int32_ops_per_s * 1e3
+    return {"ops": ops, "ops_radix4": nwin * (win // 4) * 1024 * 3,
+            "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+
+
+@contextmanager
+def viterbi_inputs():
+    """Records the soft input of every ``decode_auto`` call the receivers
+    make (the kernel's real input on a path), passing each call on."""
+    from sora_tpu_torch.dsp import viterbi as dvit
+
+    seen = []
+    orig = dvit.decode_auto
+
+    def spy(soft_ab, *args, **kwargs):
+        seen.append(soft_ab)
+        return orig(soft_ab, *args, **kwargs)
+
+    dvit.decode_auto = spy
+    try:
+        yield seen
+    finally:
+        dvit.decode_auto = orig
+
+
+def launched(vc, what: str, want=None) -> int:
+    """The kernel's launch count of the path just driven; raises when the
+    path did not launch it (or not ``want`` times)."""
+    n = vc.LAUNCHES
+    if n == 0 or (want is not None and n != want):
+        raise AssertionError(f"{what} launched the kernel {n} times, "
+                             f"expected {want or 'at least 1'}")
+    return n
+
+
+def psdus_1500(n: int, seed: int) -> np.ndarray:
+    """n distinct 1500-byte PSDUs (1472-byte random payloads)."""
+    from sora_tpu_torch.mac.frame import build_data_frame
+
+    rng = np.random.default_rng(seed)
+    return np.stack([np.frombuffer(build_data_frame(bytes(rng.integers(
+        0, 256, PSDU_LEN - 28, dtype=np.uint8)), seq=i), np.uint8)
+        for i in range(n)])
+
+
+def check_rows(card: dict, cpu: dict, rows: int, keys) -> None:
+    """The first ``rows`` rows of the card's outputs equal the CPU's."""
+    for key in keys:
+        if not np.array_equal(cpu[key], card[key][:rows]):
+            raise AssertionError(f"card and CPU disagree on {key}")
+    for key, tol in (("det", 1e-4), ("cfo", 1e-5), ("snr_db", 0.05)):
+        err = float(np.abs(cpu[key] - card[key][:rows]).max())
+        if err > tol:
+            raise AssertionError(f"card and CPU differ on {key} by {err}")
+
+
+def tx_and_mixed_phase(torch, dev, rx, vc, parity) -> dict:
+    """Phases 5 and 6: the card's TX against the CPU's, each rate decoded
+    by the fixed-rate receiver, then the 128-stream mixed-rate batch."""
+    from sora_tpu_torch.phy.dot11a import tx
+    from sora_tpu_torch.util.xfer import fetch
+
+    arr = psdus_1500(BATCH, seed=3)       # row i is sent at RATES[i % 8]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    noise = lambda shape: torch.randn(shape, dtype=torch.complex64,
+                                      device=dev, generator=gen) * 0.02
+    waves, worst = {}, 0.0
+    for ri, rate in enumerate(RATES):
+        rows = torch.from_numpy(arr[ri::len(RATES)].copy())
+        w = tx.modulate(rows.to(dev), rate, PSDU_LEN)
+        err = float((w.cpu() - tx.modulate(rows, rate, PSDU_LEN)).abs()
+                    .max())
+        worst = max(worst, err)
+        if err > TX_ATOL:
+            raise AssertionError(f"TX at {rate} Mbps: card and CPU differ "
+                                 f"by {err}")
+        x = torch.zeros(w.shape[0], w.shape[1] + 200,
+                        dtype=torch.complex64, device=dev)
+        x[:, 60: 60 + w.shape[1]] = w
+        x += noise(x.shape)
+        vc.LAUNCHES = 0
+        out = fetch(rx.rx_pipeline(x, rate, max_psdu=MAX_PSDU))
+        launched(vc, f"rx_pipeline at {rate} Mbps", 1)
+        if not (out["ok"].all()
+                and (out["psdu"][:, :PSDU_LEN] == rows.numpy()).all()):
+            raise AssertionError(f"the card's {rate} Mbps waveforms do not "
+                                 "decode")
+        waves[rate] = w
+    print(f"tx.modulate, 8 rates x 16 PSDUs of {PSDU_LEN} bytes: card and "
+          f"CPU agree within {worst:.2e} (tolerance {TX_ATOL:g}); "
+          "rx_pipeline on the card's waveforms at their rate: ok 128/128",
+          flush=True)
+
+    x = torch.zeros(BATCH, MIXED_N, dtype=torch.complex64, device=dev)
+    for i in range(BATCH):
+        w = waves[RATES[i % len(RATES)]][i // len(RATES)]
+        off = 40 + (13 * (i // len(RATES))) % 120
+        x[i, off: off + w.shape[0]] = w
+    x += noise(x.shape)
+    run = lambda: rx.rx_pipeline_auto(x, max_psdu=MAX_PSDU)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = run()
+        torch.cuda.synchronize()
+    launches = launched(vc, "rx_pipeline_auto", 1)
+    host = fetch(out)
+    want_rate = np.array([RATES[i % len(RATES)] for i in range(BATCH)])
+    n_ok = int(host["ok"].sum())
+    print(f"rx_pipeline_auto {BATCH}x{MIXED_N}, 16 streams per rate: ok "
+          f"{n_ok}/{BATCH}, kernel launches {launches}", flush=True)
+    if (n_ok != BATCH or not (host["rate_mbps"] == want_rate).all()
+            or not (host["psdu"][:, :PSDU_LEN] == arr).all()):
+        raise AssertionError("the mixed-rate batch did not decode")
+    cpu = fetch(rx.rx_pipeline_auto(x[: len(RATES)].cpu(),
+                                    max_psdu=MAX_PSDU))
+    check_rows(host, cpu, len(RATES), ("psdu", "ok", "fcs_ok", "sig_ok",
+                                       "cs_ok", "truncated", "length",
+                                       "lts1", "rate_mbps"))
+    print("card and CPU agree on the first 8 rows (one per rate)",
+          flush=True)
+    ab = seen[0]
+    parity("mixed-rate path soft", ab, *auto_window(ab.shape[1]), True)
+    for _ in range(2):
+        run()
+    ms = sorted(cuda_ms(run, 5) for _ in range(3))[1]
+    print(f"rx_pipeline_auto: {ms:.3f} ms/batch (events, median of 3 "
+          f"windows of 5); {BATCH * MIXED_N / ms / 1e3:.1f} Msamples/s, "
+          f"{BATCH * PSDU_LEN * 8 / ms / 1e3:.1f} Mbps decoded", flush=True)
+    return {"batch": [BATCH, MIXED_N], "trellis": list(ab.shape[:2]),
+            "ms": ms, "msamples_per_s": BATCH * MIXED_N / ms / 1e3,
+            "decoded_mbps": BATCH * PSDU_LEN * 8 / ms / 1e3,
+            "tx_max_abs_err": worst, "launches": launches}
+
+
+def frontend_phase(torch, dev, rx, vc, psdu0: np.ndarray) -> int:
+    """Phase 7: the raw 40 Msps capture through the front end and the
+    fixed-rate receiver, 128 streams."""
+    from sora_tpu_torch.io.dumpfile import load_dump
+    from sora_tpu_torch.util.xfer import device_complex, fetch
+
+    raw = load_dump(str(CAPTURE)).astype(np.complex64)
+    rng = np.random.default_rng(40)
+    x = np.zeros((BATCH, len(raw) + 320), np.complex64)
+    for i in range(BATCH):
+        off = 2 * (25 + (13 * i) % 120)
+        x[i, off: off + len(raw)] = raw
+    x += (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
+          ).astype(np.complex64) * (0.02 * float(np.abs(raw).mean()))
+    xd = device_complex(x, dev)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    host = fetch(rx.rx_pipeline(xd, RATE, max_psdu=MAX_PSDU,
+                                input_rate="40m"))
+    launches = launched(vc, "rx_pipeline(input_rate='40m')", 1)
+    n_ok = int(host["ok"].sum())
+    print(f"rx_pipeline(input_rate='40m') {BATCH}x{x.shape[1]} raw 40 Msps: "
+          f"ok {n_ok}/{BATCH}, kernel launches {launches}", flush=True)
+    if (n_ok != BATCH or not (host["length"] == PSDU_LEN).all()
+            or not (host["psdu"] == psdu0).all()):
+        raise AssertionError("the 40 Msps batch did not decode")
+    cpu = fetch(rx.rx_pipeline(torch.from_numpy(x[:4]), RATE,
+                               max_psdu=MAX_PSDU, input_rate="40m"))
+    check_rows(host, cpu, 4, ("psdu", "ok", "fcs_ok", "sig_ok", "cs_ok",
+                              "truncated", "length", "lts1"))
+    print("card and CPU agree on the first 4 rows at 40 Msps", flush=True)
+    return launches
+
+
+def soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
+    """Phase 8: one soak round checked (no host sync, the kernel on its
+    real input, device time), then the timed saturated rx soak."""
+    from sora_tpu_torch.tools import realtime_soak as soak
+    from sora_tpu_torch.util.xfer import fetch
+
+    air, _, span = soak.make_rx_soak_air()
+    period = span + 640
+    tx = [(int((off // period) % 64), int(off), 1.0)
+          for off in range(1000, air.advance, period)]
+    for _ in range(2):                           # warm: first-use tables
+        outs, _ = air.step(tx)
+    fetch(outs[0]["ok"])
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs, base = air.step(tx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched(vc, "one soak round", 1)
+    out = fetch(outs[0])
+    print(f"soak round: no host sync inside DeviceAir.step "
+          f"(set_sync_debug_mode('error')); {int(out['ok'].sum())} ok rows "
+          f"of {len(out['ok'])} for {len(tx)} frames sent", flush=True)
+    ab = seen[0]
+    B, T = ab.shape[:2]
+    block, overlap = auto_window(T)
+    parity("soak round soft", ab, block, overlap, True)
+    ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True), 50)
+    plain_ms = cuda_ms(lambda: vc.decode_blocks_reference(
+        ab, block, overlap, True), 1)
+    bnd = viterbi_bound(B, T, block, overlap, int32_ops_per_s)
+    print(f"viterbi kernel at the soak shape ({B}, {T}) = "
+          f"{B * (-(-T // block))} windows: {ms:.4f} ms (graph replay); "
+          f"plain version {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}: {bnd['ops'] / 1e9:.4f} G int32 ops = "
+          f"{bnd['ops_ms']:.4f} ms; {bnd['bytes'] / 1e6:.2f} MB = "
+          f"{bnd['bytes_ms']:.4f} ms); time/bound "
+          f"{ms / bnd['bound_ms']:.2f}", flush=True)
+    dev_ms, dev_launches, top = profile_device(lambda: air.step(tx), 3)
+
+    log = lambda *a: print("  soak:", *a, flush=True)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    res = soak.run_rx_soak(SOAK_SECONDS, SOAK_DEPTH, log)
+    torch.cuda.synchronize()
+    n_rounds = res["rounds"] + res["warm_rounds"]
+    launches = launched(vc, "the rx soak", n_rounds)
+    wall_round_ms = res["wall_seconds"] * 1e3 / res["rounds"]
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_round_ms
+    print(f"rx soak: {res['air_seconds']} s of 20 Msps air in "
+          f"{res['wall_seconds']} s wall, real-time ratio {res['ratio']}; "
+          f"{res['msps']} Msamples/s, {res['decoded_mbps']} Mbps decoded; "
+          f"frames delivered {res['frames_delivered']}/"
+          f"{res['frames_scheduled']}; kernel launches {launches} in "
+          f"{n_rounds} rounds ({launches / n_rounds:g} per round)",
+          flush=True)
+    if dev_ms is None:
+        print("soak round device time: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"soak round device time: {dev_ms:.3f} ms of {wall_round_ms:.3f}"
+              f" ms wall per round in the soak (idle share {idle:.3f}), "
+              f"{dev_launches:.0f} device launches per round; top:",
+              flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    print(card, flush=True)
+    return {"result": res, "launches": launches,
+            "launches_per_round": launches / n_rounds,
+            "round": {"device_ms": dev_ms, "wall_ms": wall_round_ms,
+                      "idle_share": idle, "device_launches": dev_launches},
+            "shape": [B, T], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+
+
+def convo_phase(vc, card) -> dict:
+    """Phase 9: the two-node block-ack conversation."""
+    from sora_tpu_torch.tools import realtime_soak as soak
+
+    log = lambda *a: print("  convo:", *a, flush=True)
+    vc.LAUNCHES = 0
+    res = soak.run_convo(CONVO_SECONDS, SOAK_DEPTH, log)
+    n_rounds = res["rounds"] + res["warm_rounds"]
+    launches = launched(vc, "the conversation", 2 * n_rounds)
+    print(f"convo: {res['air_seconds']} s of air in {res['wall_seconds']} s "
+          f"wall, real-time ratio {res['ratio']}; sent {res['sent']}, acked "
+          f"{res['acked']}, delivered {res['delivered']}, retransmits "
+          f"{res['retransmits']}, goodput {res['goodput_mbps']} Mbps; kernel "
+          f"launches {launches} in {n_rounds} rounds of 2 receivers",
+          flush=True)
+    print(card, flush=True)
+    return {**res, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -308,14 +616,8 @@ def main() -> int:
             raise AssertionError(f"non-finite {key}")
     small = fetch(rx.rx_pipeline(torch.from_numpy(x[:4]), RATE,
                                  max_psdu=MAX_PSDU))
-    for key in ("psdu", "ok", "fcs_ok", "sig_ok", "cs_ok", "truncated",
-                "length", "lts1"):
-        if not np.array_equal(small[key], host[key][:4]):
-            raise AssertionError(f"card and CPU disagree on {key}")
-    for key, tol in (("det", 1e-4), ("cfo", 1e-5), ("snr_db", 0.05)):
-        err = float(np.abs(small[key] - host[key][:4]).max())
-        if err > tol:
-            raise AssertionError(f"card and CPU differ on {key} by {err}")
+    check_rows(host, small, 4, ("psdu", "ok", "fcs_ok", "sig_ok", "cs_ok",
+                                "truncated", "length", "lts1"))
     print("card and CPU agree on the first 4 rows", flush=True)
 
     run = lambda: rx.rx_pipeline(xd, RATE, max_psdu=MAX_PSDU)
@@ -373,19 +675,15 @@ def main() -> int:
         for name, ms, n in top:
             print(f"  {ms:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
 
-    nwin = BATCH * (-(-T // block))
-    win = block + 2 * overlap
-    ops = nwin * win * ACS_OPS_PER_STEP        # radix-2 ACS, any exact decoder
-    ops_radix4 = nwin * (win // 4) * 1024 * 3  # the TPU's 1024 candidates
     sm_hz = max_sm_hz()
     int32_ops_per_s = (INT32_LANES_PER_SM
                        * torch.cuda.get_device_properties(0)
                        .multi_processor_count * sm_hz)
-    nbytes = BATCH * T * 2 * 4 + BATCH * T    # fp32 soft in, uint8 bits out
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / int32_ops_per_s * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms > ops_ms else "operations"
+    bnd = viterbi_bound(BATCH, T, block, overlap, int32_ops_per_s)
+    # radix-2 ACS, any exact decoder; the TPU's 1024 candidates per step
+    ops, ops_radix4, nbytes = bnd["ops"], bnd["ops_radix4"], bnd["bytes"]
+    ops_ms, bytes_ms = bnd["ops_ms"], bnd["bytes_ms"]
+    bound_ms, bound_by = bnd["bound_ms"], bnd["bound_by"]
     print(f"viterbi kernel ({BATCH}, {T}) block {block} overlap {overlap}: "
           f"{kernel_ms:.4f} ms (graph replay) = "
           f"{BATCH * T / kernel_ms / 1e3:.1f} Mbit/s; "
@@ -396,6 +694,19 @@ def main() -> int:
           f"ms; the TPU formulation's radix-4 count was "
           f"{ops_radix4 / 1e9:.4f} G ops); time/bound "
           f"{kernel_ms / bound_ms:.2f}", flush=True)
+
+    # ---- 5-7. TX, the mixed-rate path, the front end ------------------------
+    paths = {"rx_pipeline": launches}
+    mixed = tx_and_mixed_phase(torch, dev, rx, vc, parity)
+    paths["rx_pipeline_auto"] = mixed.pop("launches")
+    paths["rx_pipeline 40m"] = frontend_phase(torch, dev, rx, vc,
+                                              host["psdu"][0])
+
+    # ---- 8-9. the device-resident air ----------------------------------------
+    soak = soak_phase(torch, vc, parity, int32_ops_per_s, card)
+    paths["rx soak"] = soak["launches"]
+    convo = convo_phase(vc, card)
+    paths["convo"] = convo.pop("launches")
 
     summary = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s,
@@ -409,7 +720,10 @@ def main() -> int:
                "device_launches_per_batch": dev_launches,
                "viterbi_mbit_per_s": BATCH * T / kernel_ms / 1e3,
                "viterbi_bound_ms": bound_ms, "viterbi_int32_ops": ops,
-               "viterbi_radix4_ops": ops_radix4, "sm_hz": sm_hz}
+               "viterbi_radix4_ops": ops_radix4, "sm_hz": sm_hz,
+               "mixed_rate": mixed, "rx_soak": soak["result"],
+               "rx_soak_round": soak["round"], "convo": convo,
+               "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
@@ -421,7 +735,13 @@ def main() -> int:
                   "three-lane traceback, soft values prefetched in chunks",
         "launches": launches, "parity": "exact", "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}
+        "bound_by": bound_by, "library_ms": None,
+        "launches_by_path": paths,
+        "soak_shape": soak["shape"], "soak_ms": soak["ms"],
+        "soak_plain_ms": soak["plain_ms"],
+        "soak_bound_ms": soak["bound_ms"],
+        "soak_bound_by": soak["bound_by"],
+        "soak_launches_per_round": soak["launches_per_round"]}]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,8 @@ then Q bits); soft outputs are positive for bit 1.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -23,18 +25,26 @@ _LVL = {"bpsk": C._BPSK_LVL, "qpsk": C._QPSK_LVL, "qam16": C._QAM16_LVL,
 NBPSC = {"bpsk": 1, "qpsk": 2, "qam16": 4, "qam64": 6}
 
 
+@lru_cache(maxsize=None)
+def _map_tables(modulation: str, device: torch.device):
+    """(levels, bit weights of one axis) on ``device``: made once, so a
+    call on the card copies nothing from the host."""
+    h = NBPSC[modulation] // 2
+    return (torch.as_tensor(_LVL[modulation].astype(np.float32),
+                            device=device),
+            torch.tensor([1 << (h - 1 - i) for i in range(h)],
+                         device=device))
+
+
 def map_bits(bits: torch.Tensor, modulation: str) -> torch.Tensor:
     """(..., n*nbpsc) bits -> (..., n) complex64 unit-power symbols."""
-    lv = torch.as_tensor(_LVL[modulation].astype(np.float32),
-                         device=bits.device)
+    lv, weights = _map_tables(modulation, bits.device)
     b = bits.long()
     if modulation == "bpsk":
         return lv[b].to(torch.complex64)
     n = NBPSC[modulation]
     g = b.reshape(*b.shape[:-1], -1, n)
     h = n // 2
-    weights = torch.tensor([1 << (h - 1 - i) for i in range(h)],
-                           device=bits.device)
     i_idx = torch.sum(g[..., :h] * weights, dim=-1)
     q_idx = torch.sum(g[..., h:] * weights, dim=-1)
     return torch.complex(lv[i_idx], lv[q_idx])

@@ -8,6 +8,10 @@ tensor's device; entry points that take host data (this module's
 :func:`device_complex`, ``phy.dot11a.rx.demodulate``) default to
 ``torch.device("cuda")`` and raise when CUDA is absent.  The CPU is used
 only when the caller asks for it (``device="cpu"``) or passes CPU tensors.
+
+:func:`upload` and :class:`Pending` move data without a host sync, so a
+loop can keep several rounds of device work in flight
+(``runtime.device_air``, ``tools.realtime_soak``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,51 @@ def device_complex(x, device=None) -> torch.Tensor:
     """Host complex array -> complex64 tensor on ``device`` (default cuda)."""
     dev = resolve_device(device)
     return torch.as_tensor(np.asarray(x, dtype=np.complex64)).to(dev)
+
+
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device`` without a host sync.  A CUDA
+    copy goes from pinned memory with ``non_blocking=True``; PyTorch's
+    pinned-memory allocator records an event on the buffer and reuses it
+    only once that copy has completed, so the host array may change as
+    soon as this returns."""
+    t = torch.from_numpy(np.require(arr, requirements=("C", "W")))
+    if device.type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class Pending:
+    """Host copies of device tensors, started without waiting: the copies
+    are queued on the current stream behind the work that makes the
+    tensors, and :meth:`get` waits for those copies only — not for work
+    queued after them (a blocking ``.cpu()`` would wait for the whole
+    stream)."""
+
+    def __init__(self, tree):
+        self._tree = self._start(tree)
+        self._event = None
+        if torch.cuda.is_available():
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    @classmethod
+    def _start(cls, tree):
+        if isinstance(tree, torch.Tensor):
+            if tree.device.type == "cuda":      # lands in pinned memory
+                return tree.detach().to("cpu", non_blocking=True)
+            return tree.detach().cpu()
+        if isinstance(tree, dict):
+            return {k: cls._start(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cls._start(v) for v in tree)
+        return tree
+
+    def get(self):
+        """Wait for the copies, then the tree as host numpy arrays."""
+        if self._event is not None:
+            self._event.synchronize()
+        return fetch(self._tree)
 
 
 def fetch(tree):

@@ -161,12 +161,18 @@ def test_noise_is_not_ok():
     assert trx.demodulate(x[0], device="cpu").reason != "frame_ok"
 
 
-def test_only_20m_input_is_ported():
+def test_unknown_input_rate_raises():
+    """As the JAX package's ofdm_frontend: an input rate other than 20m,
+    40m and 44m is a ValueError, in every entry point."""
     x = torch.zeros(1, 1000, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trx.rx_pipeline(x, RATE, input_rate="40m")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        trx.demodulate(np.zeros(1000), input_rate="40m", device="cpu")
+    with pytest.raises(ValueError, match="unknown OFDM input_rate"):
+        jrx.rx_pipeline(x.numpy(), RATE, input_rate="30m")
+    with pytest.raises(ValueError, match="unknown OFDM input_rate"):
+        trx.rx_pipeline(x, RATE, input_rate="30m")
+    with pytest.raises(ValueError, match="unknown OFDM input_rate"):
+        trx.rx_pipeline_auto(x, input_rate="30m")
+    with pytest.raises(ValueError, match="unknown OFDM input_rate"):
+        trx.demodulate(np.zeros(1000), input_rate="30m", device="cpu")
 
 
 # ---- the receiver's constant tables equal the JAX package's ---------------

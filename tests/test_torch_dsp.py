@@ -7,6 +7,8 @@ matmuls and reductions against PyTorch's), so each has a tolerance
 stated beside it, relative to the input's scale.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -137,6 +139,25 @@ def test_mac_frame_matches_jax():
     assert psdu == jframe.build_data_frame(b"payload bytes", seq=3)
     assert tframe.check_fcs(psdu) and not tframe.check_fcs(psdu[:-1] + b"x")
     assert tframe.fcs32(psdu) == jframe.fcs32(psdu)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 300])
+def test_fcs32_np_matches_jax_and_zlib(rng, n):
+    data = rng.integers(0, 256, n, dtype=np.uint8)
+    got = tframe.fcs32_np(data)
+    assert got == jframe.fcs32_np(data) == zlib.crc32(data.tobytes())
+
+
+def test_ack_frame_and_header_match_jax():
+    addr = bytes(range(2, 8))
+    ack = tframe.build_ack_frame(addr)
+    assert ack == jframe.build_ack_frame(addr) and tframe.check_fcs(ack)
+    hdr = tframe.MacHeader(frame_control=0x0088, duration=44, addr1=addr,
+                           seq_ctrl=0x1234)
+    packed = hdr.pack()
+    assert packed == jframe.MacHeader(0x0088, 44, addr,
+                                      seq_ctrl=0x1234).pack()
+    assert tframe.MacHeader.unpack(packed) == hdr
 
 
 def test_dumpfile_matches_jax():
