@@ -48,7 +48,20 @@ Phases (any failure raises and the script exits nonzero):
    position-matched and one kernel launch per round;
 9. the two-node conversation (``run_convo``) over 5 s of air: something
    acked and delivered;
-10. a JSON line of the kernels, the card line, and as the last line
+10. the int16/int8 sample wire (``util/xfer.py``): card and CPU equal bit
+   for bit;
+11. the live node (``runtime/node.py``) at bench.py's node width
+   (bench.py:352-363: windows of 32768, batch 64, 11 candidates per
+   window, i8 wire, a ring of 2^25): one batch decoded on the card equal
+   to the CPU on its first 16 windows; two ``step()`` calls under
+   ``set_sync_debug_mode("error")``; the kernel against the plain version
+   and its time on that batch's own Viterbi input (704, 2160); 5 s of
+   paced, looped 24 Mbps traffic (frame_ok > 0, crc_fail <= 2% of it,
+   kernel launches == decoded batches, the native feed in use); the
+   device-only ratio and the device idle share; the sparse-air
+   compaction pair (the same ok rows from all 704 rows and from the top
+   128); the bridge selftest in-process;
+12. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
@@ -74,6 +87,13 @@ RATES = (6, 9, 12, 18, 24, 36, 48, 54)
 MIXED_N = 40736           # the 6 Mbps 1500-byte frame (40480) + 256
 TX_ATOL = 1e-5            # card against CPU TX (unit-power samples)
 SOAK_SECONDS, CONVO_SECONDS, SOAK_DEPTH = 10.0, 5.0, 6
+# the live node at bench.py's node width (bench.py:352-363)
+NODE_ADDR = b"\x02SORA1"
+NODE_CFG = dict(max_psdu=256, min_rate_mbps=24, window=32768, batch=64,
+                max_frames_per_window=11, rate_mbps=None, wire="i8")
+NODE_RING, NODE_SECONDS = 1 << 25, 5.0
+NODE_CPU_WINDOWS = 16     # windows of the node batch also decoded on the CPU
+BRIDGE_ARGS = ("--pair", "--sockets", "--selftest", "--seconds", "120")
 
 # The card's peaks for the kernel's bound: HBM bandwidth of one H100 SXM
 # (NVIDIA's data sheet, at the full 700 W limit), and its int32 issue rate:
@@ -504,6 +524,281 @@ def convo_phase(vc, card) -> dict:
     return {**res, "launches": launches}
 
 
+def wire_phase(torch, dev) -> None:
+    """Node phase 1: the int16/int8 sample wire, card against CPU, bit for
+    bit, at several AGC gains (including saturating ones), and the
+    pre-quantized path of the native feed."""
+    from sora_tpu_torch.util import xfer
+
+    rng = np.random.default_rng(16)
+    x = ((rng.normal(size=(8, 4096)) + 1j * rng.normal(size=(8, 4096)))
+         * 2.0).astype(np.complex64)
+    x[0, :6] = [0.0, 1e9, -1e9, 0.4999 - 0.4999j, 15.99 + 1j, -3.97 - 8j]
+    worst = 0
+    for name, fn in (("device_complex16", xfer.device_complex16),
+                     ("device_complex8", xfer.device_complex8)):
+        for scale in (1.0, 0.37, 9.0, 300.0):
+            card = torch.view_as_real(fn(x, dev, scale=scale)).cpu()
+            cpu = torch.view_as_real(fn(x, "cpu", scale=scale))
+            if not torch.equal(card, cpu):
+                raise AssertionError(f"{name} scale {scale}: card and CPU "
+                                     "differ")
+    for dtype in (np.int16, np.int8):
+        lim = np.iinfo(dtype).max
+        h = rng.integers(-lim, lim + 1, (64, 1024, 2)).astype(dtype)
+        card = torch.view_as_real(xfer.device_quantized(h, dev)).cpu()
+        cpu = torch.view_as_real(xfer.device_quantized(h, "cpu"))
+        scale = xfer.I8_SCALE if dtype == np.int8 else xfer.I16_SCALE
+        want = h.astype(np.float32) * np.float32(1.0 / scale)
+        if not (torch.equal(card, cpu) and np.array_equal(cpu.numpy(), want)):
+            raise AssertionError(f"device_quantized {np.dtype(dtype).name}: "
+                                 "card, CPU and host scale differ")
+        worst = max(worst, int(np.abs(card.numpy() - want).max()))
+    print("wire: device_complex16 / device_complex8 (4 gains, saturating "
+          "input) and device_quantized (int16, int8): card and CPU equal "
+          f"bit for bit (max difference {worst})", flush=True)
+
+
+def _windows(node, src: np.ndarray, batches: int) -> np.ndarray:
+    """The looped source tiled to ``batches`` node batches plus the
+    overlap (what the ring would hold)."""
+    cfg = node.cfg
+    hop = cfg.window - cfg.overlap
+    n = cfg.overlap + hop * cfg.batch * batches
+    return np.tile(src, -(-n // len(src)))[:n]
+
+
+def node_phase(torch, dev, vc, parity, int32_ops_per_s, card) -> dict:
+    """Node phases 2-7: the live node at bench.py's node width
+    (bench.py:352-363): one batch card against CPU, the issue path without
+    an implicit sync, the kernel on the batch's own soft values, the 5 s
+    paced run, the device-only ratio, the sparse-air compaction pair and
+    the bridge selftest."""
+    from sora_tpu_torch.apps import bridge
+    from sora_tpu_torch.apps.node import synthetic_traffic
+    from sora_tpu_torch.mac.frame import build_ack_frame
+    from sora_tpu_torch.phy.dot11a import rx
+    from sora_tpu_torch.runtime.native import RxRing
+    from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
+    from sora_tpu_torch.util.xfer import (I8_SCALE, device_complex16,
+                                          device_quantized, fetch)
+
+    cfg = NodeConfig(addr=NODE_ADDR, **NODE_CFG)
+    hop = cfg.window - cfg.overlap
+    nsamp = cfg.window + hop * (cfg.batch - 1)
+    air_s = nsamp / cfg.sample_rate_sps
+    K = cfg.max_frames_per_window
+    rows = cfg.batch * K
+    ring = RxRing(capacity=NODE_RING)
+    node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=dev)
+    t0 = time.perf_counter()
+    node.warm_up()
+    warm_s = time.perf_counter() - t0
+    src = synthetic_traffic(400, NODE_ADDR, mixed=False, rate=24, gap=900,
+                            device=dev)
+    print(f"node: window {cfg.window} overlap {cfg.overlap} hop {hop} batch "
+          f"{cfg.batch} K {K} ({rows} candidate rows), {nsamp} samples = "
+          f"{air_s * 1e3:.2f} ms of air per batch, wire {cfg.wire}; warm-up "
+          f"{warm_s:.2f} s; traffic {len(src)} samples (400 frames of 148 "
+          "bytes at 24 Mbps, gap 900)", flush=True)
+
+    # ---- 2. one batch at the node width, card against CPU --------------
+    feed = RxRing(capacity=NODE_RING)
+    vs = feed.alloc_vstream()
+    feed.write(_windows(node, src, 1))
+    h, _ = feed.read_windows(vs, cfg.window, hop, cfg.batch, I8_SCALE,
+                             np.int8)
+    feed.close()
+    xd = device_quantized(h, dev)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = fetch(node._decode(xd))
+    launched(vc, "one node batch", 1)
+    ab = seen[0]
+    n_cpu = NODE_CPU_WINDOWS
+    cpu = fetch(node._decode(device_quantized(h[:n_cpu], "cpu")))
+    for key in ("ok", "length", "psdu", "rate_mbps"):
+        if not np.array_equal(cpu[key], out[key][: n_cpu * K]):
+            raise AssertionError(f"node batch: card and CPU disagree on {key}")
+    n_ok = int(out["ok"].sum())
+    if n_ok == 0:
+        raise AssertionError("the node batch decoded nothing")
+    print(f"node batch {cfg.batch}x{cfg.window} (i8 wire): {n_ok} ok rows of "
+          f"{rows}, Viterbi input {tuple(ab.shape)}, kernel launches 1; card "
+          f"and CPU agree on ok, length, psdu, rate_mbps of the first "
+          f"{n_cpu} windows ({n_cpu * K} rows, {int(cpu['ok'].sum())} ok)",
+          flush=True)
+
+    # ---- 3. the issue path makes no implicit host sync ------------------
+    ring.write(_windows(node, src, 3))
+    node.step()                          # batch 1: its detect in flight
+    node.cache.get(build_ack_frame(b"\x02PEER0"), cfg.ack_rate)  # pre-staged
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # batch 2: assemble, upload, detect; gate batch 1 (an explicit
+        # event wait) and issue its decode.  Batch 3: the same, and
+        # batch 1 retires (an event wait, the MAC, a cached ACK)
+        node.step()
+        node.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    node.flush()
+    if node.stats.decoded_batches < 3 or node.stats.frame_ok == 0:
+        raise AssertionError("the checked steps did not decode:\n"
+                             + node.report())
+    print("node step: no implicit host sync while it assembles, uploads and "
+          "issues detect and decode (set_sync_debug_mode('error'), 2 steps; "
+          f"the gate's and retire's event waits are explicit); "
+          f"{node.stats.frame_ok} frames in {node.stats.decoded_batches} "
+          "batches", flush=True)
+    ring.close()
+
+    # ---- 4. the kernel at the node shape --------------------------------
+    B, T = ab.shape[:2]
+    block, overlap = auto_window(T)
+    parity("node batch soft", ab, block, overlap, True)
+    k_ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True), 50)
+    k_plain = cuda_ms(lambda: vc.decode_blocks_reference(ab, block, overlap,
+                                                         True), 1)
+    bnd = viterbi_bound(B, T, block, overlap, int32_ops_per_s)
+    print(f"viterbi kernel at the node shape ({B}, {T}) block {block} overlap "
+          f"{overlap} = {B * (-(-T // block))} windows: {k_ms:.4f} ms (graph "
+          f"replay); plain version {k_plain:.3f} ms; bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
+          f"{bnd['ops'] / 1e9:.4f} G int32 ops = {bnd['ops_ms']:.4f} ms; "
+          f"{bnd['bytes'] / 1e6:.2f} MB = {bnd['bytes_ms']:.4f} ms); "
+          f"time/bound {k_ms / bnd['bound_ms']:.2f}", flush=True)
+
+    # ---- 5. the 5 s paced run -------------------------------------------
+    ring = RxRing(capacity=NODE_RING)
+    node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=dev)
+    node.warm_up()
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    ring.start_replay(src, rate_sps=cfg.sample_rate_sps, loop=True)
+    t0 = time.perf_counter()
+    t_end = t0 + NODE_SECONDS
+    try:
+        while time.perf_counter() < t_end:
+            if not node.step():
+                time.sleep(0.001)
+    finally:
+        ring.stop()
+    node.flush()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ring.close()
+    st, rep = node.stats, node.sw.report()
+    batches = st.decoded_batches
+    launches = launched(vc, "the paced node run", batches)
+    if not node._native_feed:
+        raise AssertionError("the paced run left the native windowed feed")
+    print(f"node run ({NODE_SECONDS:g} s, paced 20 Msps, looped): "
+          f"{st.frame_ok} frames, {st.frame_ok / NODE_SECONDS:.0f} frames/s, "
+          f"MacStopwatch avg ratio {rep.avg_ratio:.4f} (max "
+          f"{rep.max_ratio:.4f}), dup {st.dup}, backlog_dropped "
+          f"{st.backlog_dropped}, crc_fail {st.crc_fail}, truncated "
+          f"{st.truncated}, cs_timeout {st.cs_timeout}, plcp_fail "
+          f"{st.plcp_fail}, acks {st.acks_tx}; decoded batches {batches}, "
+          f"kernel launches {launches}; native feed {node._native_feed}; "
+          f"{run_s:.2f} s wall with the flush", flush=True)
+    if st.frame_ok == 0 or st.crc_fail > 0.02 * st.frame_ok:
+        raise AssertionError("paced node run failed:\n" + node.report())
+
+    # device-only ratio: detect + decode of one batch, CUDA events
+    issue = lambda: (node._detect(xd), node._decode(xd))
+    issue()
+    dev_only_ms = cuda_ms(issue, 20)
+    out1 = node._decode(xd)
+    d2h = sum(v.numel() * v.element_size() for v in out1.values()) + 8 * (
+        cfg.batch)
+    h2d = h.nbytes
+    dev_ms, dev_launches, top = profile_device(issue, 3)
+    wall_batch_ms = run_s * 1e3 / max(1, batches)
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_batch_ms
+    busy = None if dev_ms is None else dev_ms / dev_only_ms
+    print(f"node device-only: {dev_only_ms:.3f} ms detect+decode per batch "
+          f"(events, 20 calls) over {air_s * 1e3:.2f} ms of air: ratio "
+          f"{dev_only_ms / 1e3 / air_s:.4f}; host->device {h2d} bytes per "
+          f"batch (i8 wire), device->host {d2h} bytes", flush=True)
+    if dev_ms is None:
+        print("node batch device time: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"node batch device time: {dev_ms:.3f} ms per detect+decode "
+              f"({dev_launches:.0f} device launches; {busy:.3f} of the event "
+              f"time); idle share of the paced run {idle:.4f} "
+              f"(wall {wall_batch_ms:.2f} ms per decoded batch); top:",
+              flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+
+    # ---- 6. sparse-air compaction (bench.py:412-438) --------------------
+    src_sp = synthetic_traffic(80, NODE_ADDR, mixed=False, rate=24,
+                               gap=30000, device=dev)
+    xw_sp = np.stack([src_sp[(i * hop) % max(1, len(src_sp) - cfg.window):]
+                      [: cfg.window] for i in range(cfg.batch)])
+    xd_sp = device_complex16(xw_sp, dev)
+    full = lambda: rx.rx_pipeline_auto(xd_sp, max_psdu=cfg.max_psdu,
+                                       n_frames=K)
+    comp = lambda: rx.rx_pipeline_auto(xd_sp, max_psdu=cfg.max_psdu,
+                                       n_frames=K, n_decode=2 * cfg.batch)
+    fo, co = fetch(full()), fetch(comp())
+    f_rows = {(int(i), bytes(fo["psdu"][i][: fo["length"][i]]))
+              for i in np.flatnonzero(fo["ok"])}
+    c_rows = {(int(co["src"][i]), bytes(co["psdu"][i][: co["length"][i]]))
+              for i in np.flatnonzero(co["ok"])}
+    if len(f_rows) != len(c_rows) or f_rows != c_rows or not f_rows:
+        raise AssertionError(f"compaction: {len(c_rows)} ok rows of the top "
+                             f"{2 * cfg.batch} against {len(f_rows)} of all "
+                             f"{rows} (or the rows differ)")
+    full_ms = sorted(cuda_ms(full, 10) for _ in range(3))[1]
+    comp_ms = sorted(cuda_ms(comp, 10) for _ in range(3))[1]
+    print(f"sparse-air compaction: {len(f_rows)} ok rows per batch, the same "
+          f"set from all {rows} rows and from the top {2 * cfg.batch}; full "
+          f"{full_ms:.3f} ms (ratio {full_ms / 1e3 / air_s:.4f}) -> top-"
+          f"{2 * cfg.batch} {comp_ms:.3f} ms (ratio "
+          f"{comp_ms / 1e3 / air_s:.4f}), {full_ms / comp_ms:.2f}x (events, "
+          "median of 3 windows of 10)", flush=True)
+
+    # ---- 7. the bridge selftest -----------------------------------------
+    vc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = bridge.main([*BRIDGE_ARGS, "--device", str(dev)])
+    bridge_s = time.perf_counter() - t0
+    b_launches = launched(vc, "the bridge selftest")
+    if rc != 0:
+        raise AssertionError(f"bridge selftest returned {rc}")
+    print(f"bridge selftest (--pair --sockets --selftest): rc 0 in "
+          f"{bridge_s:.2f} s, kernel launches {b_launches}", flush=True)
+    print(card, flush=True)
+    return {"config": {"window": cfg.window, "overlap": cfg.overlap,
+                       "hop": hop, "batch": cfg.batch, "K": K,
+                       "wire": cfg.wire, "air_ms_per_batch": air_s * 1e3},
+            "warm_s": warm_s, "frames": st.frame_ok,
+            "frames_per_s": st.frame_ok / NODE_SECONDS,
+            "avg_ratio": rep.avg_ratio, "max_ratio": rep.max_ratio,
+            "dup": st.dup, "backlog_dropped": st.backlog_dropped,
+            "crc_fail": st.crc_fail, "truncated": st.truncated,
+            "cs_timeout": st.cs_timeout, "plcp_fail": st.plcp_fail,
+            "acks_tx": st.acks_tx, "decoded_batches": batches,
+            "launches": launches, "run_s": run_s,
+            "device_only_ms": dev_only_ms,
+            "device_only_ratio": dev_only_ms / 1e3 / air_s,
+            "h2d_bytes_per_batch": h2d, "d2h_bytes_per_batch": d2h,
+            "device_ms_per_batch": dev_ms,
+            "device_launches_per_batch": dev_launches,
+            "idle_share": idle, "compaction_full_ms": full_ms,
+            "compaction_top_ms": comp_ms,
+            "compaction_speedup": full_ms / comp_ms,
+            "compaction_ok_rows": len(f_rows), "bridge_s": bridge_s,
+            "bridge_launches": b_launches, "shape": [B, T], "ms": k_ms,
+            "plain_ms": k_plain, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"]}
+
+
 def main() -> int:
     import torch
 
@@ -708,6 +1003,12 @@ def main() -> int:
     convo = convo_phase(vc, card)
     paths["convo"] = convo.pop("launches")
 
+    # ---- 10-11. the wire and the live node ------------------------------------
+    wire_phase(torch, dev)
+    node = node_phase(torch, dev, vc, parity, int32_ops_per_s, card)
+    paths["node"] = node["launches"]
+    paths["bridge"] = node["bridge_launches"]
+
     summary = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s,
                "batch": [BATCH, N], "trellis": [BATCH, T],
@@ -723,6 +1024,7 @@ def main() -> int:
                "viterbi_radix4_ops": ops_radix4, "sm_hz": sm_hz,
                "mixed_rate": mixed, "rx_soak": soak["result"],
                "rx_soak_round": soak["round"], "convo": convo,
+               "node": node,
                "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
@@ -741,7 +1043,13 @@ def main() -> int:
         "soak_plain_ms": soak["plain_ms"],
         "soak_bound_ms": soak["bound_ms"],
         "soak_bound_by": soak["bound_by"],
-        "soak_launches_per_round": soak["launches_per_round"]}]}
+        "soak_launches_per_round": soak["launches_per_round"],
+        "node_shape": node["shape"], "node_ms": node["ms"],
+        "node_plain_ms": node["plain_ms"],
+        "node_bound_ms": node["bound_ms"],
+        "node_bound_by": node["bound_by"],
+        "node_launches_per_batch":
+            node["launches"] / node["decoded_batches"]}]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,249 @@
+"""Live SDR node CLI — the umxsdrbrick analogue over replay/synthetic air
+(port of ``sora_tpu.apps.node``, phy "a").
+
+Boots the native RX ring, starts a paced producer (dump replay or
+synthetic multi-frame traffic), runs the StreamingNode poll loop (batched
+device decode + soft MAC + pre-staged ACKs), and prints the err_stat
+status page and the MACStopwatch real-time report
+(kernel/bb/umxsdrbrick/dot11main.cpp:365-457, mgmt.h:81,
+demod11/MACStopwatch.h:37-60).
+
+Examples
+--------
+Synthetic 24 Mbps traffic, paced at 20 Msps, on the card::
+
+    python -m sora_tpu_torch.apps.node --synthetic 400 --rate 24 --pace 20e6
+
+Replay a 40 Msps dump, looped::
+
+    python -m sora_tpu_torch.apps.node --dump tests/data/fsample54.dmp \\
+        --loop --seconds 3
+
+``--device cpu`` runs the node on the CPU (the default is cuda).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+_A_RATES = [6, 9, 12, 18, 24, 36, 48, 54]
+
+
+def _log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
+                      rate: float, gap: int = 900, seed: int = 7,
+                      phy: str = "a", device=None) -> np.ndarray:
+    """A 20 Msps stream of n_frames 148-byte data frames addressed to
+    `addr`, rate-mixed over the 8 OFDM rates if requested, separated by
+    idle gaps, plus noise at 0.01.  The payloads and the noise are drawn
+    from one numpy generator as in the JAX package; the frames are
+    modulated by the port's TX on ``device`` (default cuda), one batched
+    call per rate."""
+    from sora_tpu_torch.mac.frame import MacHeader, append_fcs
+    from sora_tpu_torch.phy.dot11a import tx as atx
+    from sora_tpu_torch.runtime.device_air import NOT_PORTED
+    from sora_tpu_torch.util.xfer import fetch, resolve_device, upload
+
+    if phy in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[phy])
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    rates = _A_RATES if mixed else [int(rate)]
+    psdus = []
+    for i in range(n_frames):
+        hdr = MacHeader(addr1=addr, addr2=b"\x02PEER0", addr3=addr,
+                        seq_ctrl=(i & 0xFFF) << 4)
+        payload = bytes(rng.integers(0, 256, 120, dtype=np.uint8))
+        psdus.append(np.frombuffer(append_fcs(hdr.pack() + payload),
+                                   np.uint8))
+    waves = [None] * n_frames
+    for r in sorted(set(rates)):
+        idx = [i for i in range(n_frames) if rates[i % len(rates)] == r]
+        if not idx:
+            continue
+        arr = np.stack([psdus[i] for i in idx])
+        w = fetch(atx.modulate(upload(arr, dev), r, arr.shape[1]))
+        for k, i in enumerate(idx):
+            waves[i] = w[k]
+    pieces = []
+    for w in waves:
+        pieces.append(np.zeros(gap, np.complex64))
+        pieces.append(w)
+    pieces.append(np.zeros(gap, np.complex64))
+    x = np.concatenate(pieces)
+    x += (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
+          ).astype(np.complex64) * 0.01
+    return x
+
+
+def _process_kb(node) -> bool:
+    """Non-blocking stdin control — the reference UI loop's live
+    reconfiguration (process_kb, dot11main.cpp:148-204).  Keys:
+    1-8 fixed rate, 0 auto dispatch, t/T detect threshold down/up,
+    p promiscuous toggle, s status page, q quit.  Returns False on q."""
+    import select
+
+    while True:
+        ready, _, _ = select.select([sys.stdin], [], [], 0)
+        if not ready:
+            return True
+        ch = sys.stdin.read(1)
+        if not ch:
+            return True
+        if ch == "q":
+            return False
+        if ch == "s":
+            _log(node.report())
+        elif ch == "p":
+            node.reconfigure(promiscuous=not node.cfg.promiscuous)
+            _log(f"promiscuous={node.cfg.promiscuous}")
+        elif ch in "tT":
+            thr = node.cfg.detect_threshold * (1.25 if ch == "T" else 0.8)
+            node.reconfigure(detect_threshold=thr)
+            _log(f"detect_threshold={thr:.3f}")
+        elif ch == "0":
+            node.reconfigure(rate_mbps=None, warm=True)
+            _log("rate=auto")
+        elif ch.isdigit() and int(ch) - 1 < len(_A_RATES):
+            node.reconfigure(rate_mbps=_A_RATES[int(ch) - 1], warm=True)
+            _log(f"rate={_A_RATES[int(ch) - 1]} Mbps")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="sora_tpu_torch.apps.node",
+                                description=__doc__.split("\n")[0])
+    p.add_argument("--dump", help="replay a Sora dump file into the ring")
+    p.add_argument("--loop", action="store_true",
+                   help="loop the replay source")
+    p.add_argument("--synthetic", type=int, metavar="N", default=0,
+                   help="generate N synthetic data frames instead")
+    p.add_argument("--mixed", action="store_true",
+                   help="synthetic traffic cycles all 8 rates")
+    p.add_argument("--rate", type=float, default=6.0,
+                   help="synthetic traffic rate in Mbps")
+    p.add_argument("--pace", type=float, default=0.0,
+                   help="producer pacing in samples/s (0 = unpaced); "
+                        "dump replay defaults to its design rate")
+    p.add_argument("--msps", type=int, default=40, choices=(20, 40),
+                   help="dump sample rate (chooses the device front end)")
+    p.add_argument("--seconds", type=float, default=2.0,
+                   help="how long to run the node loop")
+    p.add_argument("--batch", type=int, default=0,
+                   help="windows per device batch (0 = auto)")
+    p.add_argument("--window", type=int, default=0,
+                   help="samples per window (0 = auto)")
+    p.add_argument("--status-every", type=float, default=0.0,
+                   help="print the status page every S seconds")
+    p.add_argument("--keys", action="store_true",
+                   help="interactive stdin control: 1-8 rate, 0 auto, "
+                        "t/T threshold, p promiscuous, s status, q quit "
+                        "(process_kb, dot11main.cpp:148-204)")
+    p.add_argument("--config", default=None,
+                   help="NodeConfig JSON file (layered under env "
+                        "SORA_* and explicit flags; util/config.py)")
+    p.add_argument("--rx-gain", type=float, default=None, metavar="DB",
+                   help="radio RX gain in dB (SoraURadioSetRxGain over "
+                        "the software front end, runtime/radio.py)")
+    p.add_argument("--freq-offset", type=float, default=0.0, metavar="HZ",
+                   help="radio fine frequency offset "
+                        "(SoraURadioSetFreqOffset)")
+    p.add_argument("--tune-error", type=float, default=0.0, metavar="HZ",
+                   help="simulated central-frequency mismatch vs the "
+                        "air (SetCentralFreq delta)")
+    p.add_argument("--wire", default="i16", choices=("i16", "i8"),
+                   help="host->device sample wire format")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the node (default cuda)")
+    args = p.parse_args(argv)
+
+    from sora_tpu_torch.runtime.native import RxRing, parse_dump
+    from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
+    from sora_tpu_torch.util.config import load_config
+
+    addr = b"\x02SORA1"
+    if args.dump:
+        src = parse_dump(args.dump)
+        input_rate = "40m" if args.msps == 40 else "20m"
+        rate_sps = args.pace or float(args.msps) * 1e6
+        batch = args.batch or 4
+        max_psdu = 1600
+        min_rate = 6.0
+    else:
+        if not args.synthetic:
+            p.error("need --dump or --synthetic N")
+        src = synthetic_traffic(args.synthetic, addr, args.mixed, args.rate,
+                                device=args.device)
+        input_rate = "20m"
+        rate_sps = args.pace
+        batch = args.batch or 8
+        max_psdu = 256
+        min_rate = 6.0 if args.mixed else args.rate
+
+    # window/overlap auto-size from (max_psdu, min_rate) inside
+    # NodeConfig.__post_init__
+    cfg = load_config(NodeConfig, path=args.config, overrides=dict(
+        window=args.window, batch=batch, overlap=0, input_rate=input_rate,
+        max_psdu=max_psdu, addr=addr, min_rate_mbps=min_rate,
+        wire=args.wire, sample_rate_sps=rate_sps or 20e6))
+    if args.rx_gain is not None or args.freq_offset or args.tune_error:
+        # run the source through the radio front end (gain, tuning) —
+        # the SoraURadioSetRxGain/SetCentralFreq path over software
+        from sora_tpu_torch.runtime.radio import SoftRadio
+        radio = SoftRadio(device=args.device)
+        radio.attach_air(src, freq_hz=2.422e9, rate_sps=rate_sps or 20e6)
+        if args.rx_gain is not None:
+            radio.set_rx_gain(args.rx_gain)
+        radio.set_central_freq(2.422e9 + args.tune_error)
+        radio.set_freq_offset(args.freq_offset)
+        src = radio.capture()
+        _log(f"radio: rx_gain={radio.state.rx_gain_db} dB "
+             f"tune_error={args.tune_error:+.0f} Hz "
+             f"freq_offset={args.freq_offset:+.0f} Hz")
+    ring = RxRing(capacity=1 << 22)
+    try:
+        node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=args.device)
+        _log(f"node: window={cfg.window} batch={cfg.batch} "
+             f"overlap={cfg.overlap} front_end={input_rate} "
+             f"pace={(rate_sps or 20e6) / 1e6:.1f} Msps "
+             f"src={src.shape[-1]} samples loop={bool(args.loop or args.dump)}"
+             f" device={node.device}")
+        t0 = time.perf_counter()
+        node.warm_up()
+        _log(f"warm-up (kernel build, tables) in "
+             f"{time.perf_counter() - t0:.1f}s")
+        ring.start_replay(src, rate_sps=rate_sps,
+                          loop=bool(args.loop) or bool(args.dump))
+        t_end = time.perf_counter() + args.seconds
+        t_status = time.perf_counter() + (args.status_every or 1e9)
+        try:
+            while time.perf_counter() < t_end:
+                if not node.step():
+                    time.sleep(0.001)
+                if time.perf_counter() >= t_status:
+                    _log(node.stats.status_page())
+                    t_status = time.perf_counter() + args.status_every
+                if args.keys and not _process_kb(node):
+                    break
+        finally:
+            ring.stop()
+        node.flush()
+    finally:
+        ring.close()
+    print(node.report())
+    rep = node.sw.report()
+    ok = node.stats.frame_ok > 0 and rep.avg_ratio < 1.0
+    print(f"node {'OK' if ok else 'NOT-REALTIME-OR-IDLE'}: "
+          f"{node.stats.frame_ok} frames, {node.stats.acks_tx} acks, "
+          f"avg ratio {rep.avg_ratio:.3f}")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,96 @@
+"""The port's node app and node soak tool on the CPU.
+
+``synthetic_traffic`` draws its payloads and noise from the same numpy
+generator as the JAX package's and modulates with the port's TX, so the
+stream equals the JAX app's (golden-model frames) within 1e-5; the CLI
+and the soak tool run end to end with ``--device cpu``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sora_tpu.apps import node as japp
+from sora_tpu_torch.apps import node as tapp
+from sora_tpu_torch.tools import node_soak
+
+torch.set_num_threads(2)
+
+ADDR = b"\x02SORA1"
+TRAFFIC_ATOL = 1e-5       # the port's TX against the float64 golden model
+
+
+@pytest.mark.parametrize("mixed,rate", [(False, 24), (True, 6)])
+def test_synthetic_traffic_matches_jax(mixed, rate):
+    got = tapp.synthetic_traffic(12, ADDR, mixed, rate, gap=500,
+                                 device="cpu")
+    want = japp.synthetic_traffic(12, ADDR, mixed, rate, gap=500)
+    assert got.dtype == want.dtype == np.complex64
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < TRAFFIC_ATOL
+
+
+def test_synthetic_traffic_phy_b_n_not_ported():
+    for phy in ("b", "n"):
+        with pytest.raises(NotImplementedError):
+            tapp.synthetic_traffic(2, ADDR, False, 6, phy=phy, device="cpu")
+
+
+def test_node_app_decodes_synthetic_traffic(capsys):
+    tapp.main(["--synthetic", "24", "--rate", "24", "--device", "cpu",
+               "--seconds", "1.5", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert "frame_ok           24" in out, out
+    assert "24 frames, 24 acks" in out, out
+
+
+def test_node_soak_tool_runs(capsys):
+    rc = node_soak.main(["--seconds", "1.0", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    frames = int(out.split("soak OK (")[1].split()[0])
+    assert frames > 0, out
+
+
+def test_layered_config_equals_jax(tmp_path, monkeypatch):
+    """defaults < file < env < overrides resolve the port's NodeConfig as
+    the JAX package resolves its own."""
+    import dataclasses
+    import json
+
+    from sora_tpu.runtime.node import NodeConfig as JNodeConfig
+    from sora_tpu.util.config import load_config as jload
+    from sora_tpu_torch.runtime.node import NodeConfig
+    from sora_tpu_torch.util.config import dump_config, load_config
+
+    f = tmp_path / "node.json"
+    f.write_text('{"window": 2048, "batch": 4, "ack_rate": 12, '
+                 '"max_psdu": 64, "min_rate_mbps": 24, "addr": "\\u0002AB"}')
+    monkeypatch.setenv("SORA_BATCH", "16")
+    monkeypatch.setenv("SORA_WIRE", "i8")
+    over = {"ack_rate": 24, "window": None}
+    cfg = load_config(NodeConfig, path=str(f), overrides=over)
+    assert (cfg.window, cfg.batch, cfg.ack_rate, cfg.wire) == (
+        2048, 16, 24, "i8")
+    assert cfg.addr == b"\x02AB"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jload(JNodeConfig, path=str(f), overrides=over))
+    assert json.loads(dump_config(cfg))["addr"] == "\x02AB"
+    with pytest.raises(KeyError):
+        load_config(NodeConfig, overrides={"nonsense": 1})
+
+
+def test_stopwatch_report():
+    from sora_tpu_torch.util.stopwatch import MacStopwatch
+
+    sw = MacStopwatch(sample_rate=20e6)
+    sw.add(20000, 0.0005)      # 1 ms of signal in 0.5 ms -> ratio 0.5
+    sw.add(20000, 0.002)       # ratio 2.0
+    with sw.segment(200000):
+        pass
+    rep = sw.report()
+    assert rep.segments == 3 and rep.max_ratio == pytest.approx(2.0)
+    assert rep.frac_over == pytest.approx(1 / 3)
+    assert rep.realtime and "33.3% segments over" in str(rep)
+    sw.reset()
+    assert sw.report().segments == 0

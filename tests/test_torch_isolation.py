@@ -5,6 +5,8 @@
 * No source of the package, nor chip_smoke.py, imports them.
 * Entry points that take host data default to CUDA and raise without it.
 * The kernel module imports without nvcc, and a build without nvcc raises.
+* The native ring library builds only at first use, never on import, and
+  a build without g++ raises.
 """
 
 import os
@@ -20,7 +22,9 @@ import torch
 
 import sora_tpu_torch
 from sora_tpu_torch.ops import viterbi_cuda as vc
+from sora_tpu_torch.apps import node as tapp
 from sora_tpu_torch.phy.dot11a import rx as trx
+from sora_tpu_torch.runtime import native, node, radio
 from sora_tpu_torch.util import xfer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -56,7 +60,7 @@ def test_package_imports_no_jax_nor_sora_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) == len(_modules()) >= 15
+    assert int(n) == len(_modules()) >= 44
     assert bad.strip() == "[]"
 
 
@@ -85,9 +89,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         trx.demodulate(x)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         xfer.device_complex(x, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        xfer.device_complex8(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        radio.SoftRadio()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapp.synthetic_traffic(1, b"\x02SORA1", False, 24)
+    ring = native.RxRing(capacity=1 << 12)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1))
     # the CPU only when asked for
     assert xfer.device_complex(x, "cpu").device.type == "cpu"
     assert trx.demodulate(x, device="cpu").reason == "cs_timeout"
+    assert node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1),
+                              device="cpu").device.type == "cpu"
+    ring.close()
 
 
 def test_kernel_module_imports_without_nvcc():
@@ -107,3 +123,31 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(vc.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         vc.build(force=True)
+
+
+_IMPORT_NO_BUILD = r"""
+import subprocess
+calls = []
+run = subprocess.run
+subprocess.run = lambda *a, **k: calls.append(a) or run(*a, **k)
+import sora_tpu_torch.runtime.native as native
+import sora_tpu_torch.runtime.node, sora_tpu_torch.apps.bridge
+import sora_tpu_torch.tools.node_soak
+print(native._lib is None, len(calls))
+"""
+
+
+def test_ring_module_imports_without_building():
+    env = dict(os.environ, PATH="/nonexistent")
+    env.pop("CXX", None)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_NO_BUILD], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["True", "0"]
+
+
+def test_ring_build_without_gxx_raises(monkeypatch):
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.build(force=True)
