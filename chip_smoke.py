@@ -61,7 +61,32 @@ Phases (any failure raises and the script exits nonzero):
    device-only ratio and the device idle share; the sparse-air
    compaction pair (the same ok rows from all 704 rows and from the top
    128); the bridge selftest in-process;
-12. a JSON line of the kernels, the card line, and as the last line
+12. the 11n TX (``phy/dot11n/tx.py``): ``modulate`` on the card and on
+   the CPU for MCS 0-15, long and short GI (16 PSDUs of 1500 bytes each),
+   equal within 1e-5; the card's waveforms decode through the card's
+   fixed-MCS receivers at their MCS and guard;
+13. bench.py's 11n row (bench.py:294-336): ``rx_pipeline(x, 15,
+   max_psdu=1504)`` on 128 streams of MCS 15 2x2 frames (2 x 3120
+   samples) and ``rx_pipeline_1ss(x, 7, ...)`` on 128 streams of MCS 7
+   (2 x 4880): ok 128/128 with 2 kernel launches each (HT-SIG and data),
+   the first 8 rows equal to the CPU run, timings, stages, the device's
+   share, and the kernel on both Viterbi inputs ((128, 48), (128, 12480),
+   (128, 12220)); then 128 MCS 15 short-GI frames: 128/128 through
+   ``short_gi=True``, 0 through the long-GI call;
+14. the mixed-MCS receivers at full width: 16 streams per MCS 8-15
+   through ``rx_pipeline_auto`` and 0-7 through ``rx_pipeline_auto_1ss``:
+   every row ok with its MCS and PSDU, one row per MCS equal to the CPU
+   run, 2 launches per call;
+15. the 11n soak air (``tools/realtime_soak.py --phy n``: 512 windows of
+   2 x 11264, 64 cached MCS 15 frames): one round without a host sync,
+   the kernel on the round's (512, 12480) input, then about 10 s of air
+   with every frame position-matched and 2 launches per round;
+16. the 11n node on two rings (``apps/node.py --phy n --synthetic 400
+   --mixed --batch 64``): one batch card against CPU (4 launches: both
+   stream classes' pipelines), two steps without an implicit sync, the
+   400 frames written once and decoded (frame_ok >= 98%, crc_fail <= 2%,
+   4 launches per decoded batch);
+17. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
@@ -94,6 +119,13 @@ NODE_CFG = dict(max_psdu=256, min_rate_mbps=24, window=32768, batch=64,
 NODE_RING, NODE_SECONDS = 1 << 25, 5.0
 NODE_CPU_WINDOWS = 16     # windows of the node batch also decoded on the CPU
 BRIDGE_ARGS = ("--pair", "--sockets", "--selftest", "--seconds", "120")
+# the 802.11n cells: bench.py's 11n row (bench.py:294-336), the soak air
+# (tools/realtime_soak.py:83-101) and the node that apps/node.py --phy n
+# --synthetic 400 --mixed --batch 64 builds (apps/node.py:176-233)
+HT_BATCH, HT_NOISE, HT_CPU_ROWS = 128, 0.02, 8
+HT_SOAK_SECONDS = 10.0
+HT_NODE_CFG = dict(phy="n", max_psdu=256, min_rate_mbps=8, batch=64)
+HT_NODE_FRAMES, HT_NODE_RING = 400, 1 << 22
 
 # The card's peaks for the kernel's bound: HBM bandwidth of one H100 SXM
 # (NVIDIA's data sheet, at the full 700 W limit), and its int32 issue rate:
@@ -259,6 +291,33 @@ def viterbi_bound(B: int, T: int, block: int, overlap: int,
             "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+
+
+def kernel_timing(vc, ab, int32_ops_per_s, plain_reps: int = 1) -> dict:
+    """The kernel's graph-replay time, the plain version's time and the
+    bound at the decode_auto window of ab (B, T, 2)."""
+    B, T = ab.shape[:2]
+    block, overlap = auto_window(T)
+    ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True), 50)
+    plain = cuda_ms(lambda: vc.decode_blocks_reference(ab, block, overlap,
+                                                       True), plain_reps)
+    bnd = viterbi_bound(B, T, block, overlap, int32_ops_per_s)
+    return {"shape": [B, T], "block": block, "overlap": overlap, "ms": ms,
+            "plain_ms": plain, **{k: bnd[k] for k in (
+                "bound_ms", "bound_by", "ops", "ops_ms", "bytes",
+                "bytes_ms")}}
+
+
+def print_kernel(name: str, k: dict) -> None:
+    B, T = k["shape"]
+    print(f"viterbi kernel at the {name} shape ({B}, {T}) block {k['block']} "
+          f"overlap {k['overlap']} = {B * (-(-T // k['block']))} windows: "
+          f"{k['ms']:.4f} ms (graph replay); plain version "
+          f"{k['plain_ms']:.3f} ms; bound {k['bound_ms']:.4f} ms "
+          f"({k['bound_by']}: {k['ops'] / 1e9:.4f} G int32 ops = "
+          f"{k['ops_ms']:.4f} ms; {k['bytes'] / 1e6:.2f} MB = "
+          f"{k['bytes_ms']:.4f} ms); time/bound "
+          f"{k['ms'] / k['bound_ms']:.2f}", flush=True)
 
 
 @contextmanager
@@ -454,20 +513,9 @@ def soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
           f"(set_sync_debug_mode('error')); {int(out['ok'].sum())} ok rows "
           f"of {len(out['ok'])} for {len(tx)} frames sent", flush=True)
     ab = seen[0]
-    B, T = ab.shape[:2]
-    block, overlap = auto_window(T)
-    parity("soak round soft", ab, block, overlap, True)
-    ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True), 50)
-    plain_ms = cuda_ms(lambda: vc.decode_blocks_reference(
-        ab, block, overlap, True), 1)
-    bnd = viterbi_bound(B, T, block, overlap, int32_ops_per_s)
-    print(f"viterbi kernel at the soak shape ({B}, {T}) = "
-          f"{B * (-(-T // block))} windows: {ms:.4f} ms (graph replay); "
-          f"plain version {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
-          f"({bnd['bound_by']}: {bnd['ops'] / 1e9:.4f} G int32 ops = "
-          f"{bnd['ops_ms']:.4f} ms; {bnd['bytes'] / 1e6:.2f} MB = "
-          f"{bnd['bytes_ms']:.4f} ms); time/bound "
-          f"{ms / bnd['bound_ms']:.2f}", flush=True)
+    parity("soak round soft", ab, *auto_window(ab.shape[1]), True)
+    kern = kernel_timing(vc, ab, int32_ops_per_s)
+    print_kernel("soak", kern)
     dev_ms, dev_launches, top = profile_device(lambda: air.step(tx), 3)
 
     log = lambda *a: print("  soak:", *a, flush=True)
@@ -501,8 +549,7 @@ def soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
             "launches_per_round": launches / n_rounds,
             "round": {"device_ms": dev_ms, "wall_ms": wall_round_ms,
                       "idle_share": idle, "device_launches": dev_launches},
-            "shape": [B, T], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"]}
+            "kernel": kern}
 
 
 def convo_phase(vc, card) -> dict:
@@ -656,20 +703,9 @@ def node_phase(torch, dev, vc, parity, int32_ops_per_s, card) -> dict:
     ring.close()
 
     # ---- 4. the kernel at the node shape --------------------------------
-    B, T = ab.shape[:2]
-    block, overlap = auto_window(T)
-    parity("node batch soft", ab, block, overlap, True)
-    k_ms = graph_ms(lambda: vc.decode_blocks(ab, block, overlap, True), 50)
-    k_plain = cuda_ms(lambda: vc.decode_blocks_reference(ab, block, overlap,
-                                                         True), 1)
-    bnd = viterbi_bound(B, T, block, overlap, int32_ops_per_s)
-    print(f"viterbi kernel at the node shape ({B}, {T}) block {block} overlap "
-          f"{overlap} = {B * (-(-T // block))} windows: {k_ms:.4f} ms (graph "
-          f"replay); plain version {k_plain:.3f} ms; bound "
-          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: "
-          f"{bnd['ops'] / 1e9:.4f} G int32 ops = {bnd['ops_ms']:.4f} ms; "
-          f"{bnd['bytes'] / 1e6:.2f} MB = {bnd['bytes_ms']:.4f} ms); "
-          f"time/bound {k_ms / bnd['bound_ms']:.2f}", flush=True)
+    parity("node batch soft", ab, *auto_window(ab.shape[1]), True)
+    kern = kernel_timing(vc, ab, int32_ops_per_s)
+    print_kernel("node", kern)
 
     # ---- 5. the 5 s paced run -------------------------------------------
     ring = RxRing(capacity=NODE_RING)
@@ -794,9 +830,514 @@ def node_phase(torch, dev, vc, parity, int32_ops_per_s, card) -> dict:
             "compaction_top_ms": comp_ms,
             "compaction_speedup": full_ms / comp_ms,
             "compaction_ok_rows": len(f_rows), "bridge_s": bridge_s,
-            "bridge_launches": b_launches, "shape": [B, T], "ms": k_ms,
-            "plain_ms": k_plain, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"]}
+            "bridge_launches": b_launches, "kernel": kern}
+
+
+# ---------------------------------------------------------------------------
+# 802.11n (phases 12-16)
+# ---------------------------------------------------------------------------
+
+
+def ht_place(torch, dev, w, offs, N: int, gen, noise: float = HT_NOISE):
+    """Streams (B, 2, N) on the card holding waveform w[i] at offs[i]:
+    a (2, n) 2x2 waveform puts chain a on antenna a (bench.py's identity
+    channel), a (1, n) single-stream one goes to both antennas; plus
+    complex Gaussian noise of ``noise`` rms per part, drawn on the card."""
+    B = w.shape[0]
+    x = torch.zeros(B, 2, N, dtype=torch.complex64, device=dev)
+    for i in range(B):
+        x[i, :, offs[i]: offs[i] + w.shape[-1]] = w[i]
+    nz = torch.randn(2, B, 2, N, generator=gen, device=dev) * noise
+    return x + torch.complex(nz[0], nz[1])
+
+
+HT_ROW_KEYS = ("psdu", "ok", "fcs_ok", "sig_ok", "mcs", "length")
+
+
+def ht_tx_phase(torch, dev, vc) -> dict:
+    """Phase 12: the 11n TX on the card against the CPU for MCS 0-15, long
+    and short GI (16 PSDUs of 1500 bytes each); the card's waveforms
+    decode through the card's fixed-MCS receivers at their MCS."""
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+    from sora_tpu_torch.phy.dot11n import tx as ntx
+    from sora_tpu_torch.util.xfer import fetch
+
+    arr = psdus_1500(16, seed=12)
+    rows = torch.from_numpy(arr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    worst, launches = 0.0, 0
+    for mcs in range(16):
+        for sgi in (False, True):
+            w = ntx.modulate(rows.to(dev), mcs, PSDU_LEN, short_gi=sgi)
+            err = float((w.cpu() - ntx.modulate(rows, mcs, PSDU_LEN,
+                                                short_gi=sgi)).abs().max())
+            worst = max(worst, err)
+            if err > TX_ATOL:
+                raise AssertionError(f"11n TX MCS {mcs} sgi {sgi}: card and "
+                                     f"CPU differ by {err}")
+            x = ht_place(torch, dev, w, [60] * 16, w.shape[-1] + 200, gen)
+            pipe = nrx.rx_pipeline_1ss if mcs < 8 else nrx.rx_pipeline
+            vc.LAUNCHES = 0
+            out = fetch(pipe(x, mcs, max_psdu=MAX_PSDU, short_gi=sgi))
+            launches += launched(vc, f"11n MCS {mcs} sgi {sgi}", 2)
+            if not (out["ok"].all() and (out["mcs"] == mcs).all() and (
+                    out["psdu"][:, :PSDU_LEN] == arr).all()):
+                raise AssertionError(f"the card's MCS {mcs} (sgi {sgi}) "
+                                     "waveforms do not decode")
+    print(f"ntx.modulate, MCS 0-15 x long/short GI x {len(arr)} PSDUs of "
+          f"{PSDU_LEN} "
+          f"bytes: card and CPU agree within {worst:.2e} (tolerance "
+          f"{TX_ATOL:g}); the card's waveforms decode at their MCS and GI: "
+          f"ok {len(arr)}/{len(arr)} in each of 32 calls, kernel launches "
+          f"{launches} (2 per call)", flush=True)
+    return {"max_abs_err": worst, "launches": launches}
+
+
+def ht_fixed_phase(torch, dev, vc, parity, int32_ops_per_s, mcs: int,
+                   seed: int) -> dict:
+    """Phase 13: bench.py's 11n row (bench.py:294-336) on the card:
+    128 streams of one MCS (15: 2x2; 7: single stream), 1500-byte frames
+    from the card's TX at offsets 30 + (7 i) % 300 in n + 400 samples,
+    noise 0.02.  ok 128/128 with 2 kernel launches (HT-SIG and data), the
+    first rows equal to the CPU run, timings, the device's share, and the
+    kernel on both of the path's Viterbi inputs."""
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+    from sora_tpu_torch.phy.dot11n import tx as ntx
+    from sora_tpu_torch.util.xfer import fetch
+
+    one_ss = mcs < 8
+    name = f"MCS {mcs} {'single-stream' if one_ss else '2x2'}"
+    arr = psdus_1500(HT_BATCH, seed=seed)
+    w = ntx.modulate(torch.from_numpy(arr).to(dev), mcs, PSDU_LEN)
+    N = w.shape[-1] + 400
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    offs = [30 + (7 * i) % 300 for i in range(HT_BATCH)]
+    xd = ht_place(torch, dev, w, offs, N, gen)
+    pipe = nrx.rx_pipeline_1ss if one_ss else nrx.rx_pipeline
+    run = lambda: pipe(xd, mcs, max_psdu=MAX_PSDU)
+    run()                                        # first-use tables
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = run()
+        torch.cuda.synchronize()
+    launches = launched(vc, f"{pipe.__name__} {name}", 2)
+    host = fetch(out)
+    n_ok = int(host["ok"].sum())
+    print(f"{pipe.__name__} {name} {HT_BATCH}x2x{N}: ok {n_ok}/{HT_BATCH}, "
+          f"kernel launches {launches}", flush=True)
+    if (n_ok != HT_BATCH or not (host["mcs"] == mcs).all()
+            or not (host["psdu"][:, :PSDU_LEN] == arr).all()):
+        raise AssertionError(f"the {name} batch did not decode")
+    for key in ("det", "cfo", "snr_db"):
+        if not np.isfinite(host[key]).all():
+            raise AssertionError(f"non-finite {key}")
+    cpu = fetch(pipe(xd[:HT_CPU_ROWS].cpu(), mcs, max_psdu=MAX_PSDU))
+    check_rows(host, cpu, HT_CPU_ROWS, HT_ROW_KEYS + ("cs_ok", "lts1"))
+    print(f"card and CPU agree on the first {HT_CPU_ROWS} rows", flush=True)
+    sig_ab, data_ab = seen
+    parity(f"{name} HT-SIG soft", sig_ab, *auto_window(sig_ab.shape[1]), True)
+    parity(f"{name} data soft", data_ab, *auto_window(data_ab.shape[1]),
+           True)
+
+    for _ in range(2):
+        run()
+    windows = sorted(cuda_ms(run, 20) for _ in range(5))
+    chain_ms = windows[2]
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        fetch(run()["ok"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = (float(v) for v in np.percentile(lat, [50, 90]))
+    msps = HT_BATCH * N / chain_ms / 1e3          # per antenna
+    mbps = HT_BATCH * PSDU_LEN * 8 / chain_ms / 1e3
+    nsym = min(nrx.max_symbols(mcs, MAX_PSDU),
+               max(1, (N - (528 if one_ss else 608)) // 80))
+    lts1, cfo, det = nrx.synchronize(xd)
+    if one_ss:
+        ext = lambda: nrx.extract_symbols_1ss(xd, lts1, cfo, nsym,
+                                              return_weights=True)
+    else:
+        ext = lambda: nrx.extract_symbols(xd, lts1, cfo, nsym,
+                                          return_weights=True)
+    sig_eq, xdd, _, wgt = ext()
+    _, length, _, _ = nrx.decode_htsig(sig_eq[:, 1:])
+    length = torch.clamp(length, 0, MAX_PSDU).to(torch.int32)
+    block, overlap = auto_window(data_ab.shape[1])
+    bits = vc.decode_blocks(data_ab, block, overlap, True)
+    stage_ms = {
+        "synchronize": cuda_ms(lambda: nrx.synchronize(xd), 20),
+        "extract_symbols": cuda_ms(ext, 20),
+        "decode_lsig": cuda_ms(lambda: nrx.decode_lsig(sig_eq[:, 0]), 20),
+        "decode_htsig": cuda_ms(lambda: nrx.decode_htsig(sig_eq[:, 1:]), 20),
+        "data_soft": cuda_ms(lambda: nrx.data_soft(xdd, length, mcs, wgt),
+                             20),
+        "viterbi": cuda_ms(lambda: vc.decode_blocks(data_ab, block, overlap,
+                                                    True), 50),
+        "finish_frame": cuda_ms(lambda: nrx._finish_frame(
+            bits, length, data_ab.shape[1], MAX_PSDU), 20),
+    }
+    dev_ms, dev_launches, top = profile_device(run, 5)
+    idle = None if dev_ms is None else 1.0 - dev_ms / chain_ms
+    print(f"{pipe.__name__} {name}: {chain_ms:.3f} ms/batch (events, median "
+          f"of 5 windows of 20; range {windows[0]:.3f}-{windows[-1]:.3f}); "
+          f"{msps:.1f} Msamples/s per antenna, {mbps:.1f} Mbps decoded; "
+          f"latency with fetch p50 {p50:.3f} ms, p90 {p90:.3f} ms (50 "
+          "batches)", flush=True)
+    print("stages ms: " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in stage_ms.items()), flush=True)
+    if dev_ms is None:
+        print("device time: not measured (the profiler saw no device "
+              "events)", flush=True)
+    else:
+        print(f"device time: kernels {dev_ms:.3f} ms of {chain_ms:.3f} ms per "
+              f"batch (idle share {idle:.3f}), {dev_launches:.0f} device "
+              "launches per batch; top:", flush=True)
+        for kname, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {kname[:90]}", flush=True)
+    kern = {"htsig": kernel_timing(vc, sig_ab, int32_ops_per_s, 3),
+            "data": kernel_timing(vc, data_ab, int32_ops_per_s)}
+    print_kernel(f"{name} HT-SIG", kern["htsig"])
+    print_kernel(f"{name} data", kern["data"])
+    return {"batch": [HT_BATCH, 2, N], "ms": chain_ms, "windows_ms": windows,
+            "msamples_per_s_per_antenna": msps, "decoded_mbps": mbps,
+            "latency_p50_ms": p50, "latency_p90_ms": p90,
+            "stage_ms": stage_ms, "device_ms": dev_ms, "idle_share": idle,
+            "device_launches": dev_launches, "launches": launches,
+            "kernel": kern}
+
+
+def ht_sgi_phase(torch, dev, vc) -> int:
+    """Phase 13, short GI: 128 streams of MCS 15 short-GI frames: ok
+    128/128 through ``rx_pipeline(..., short_gi=True)``, ok 0 through the
+    long-GI call."""
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+    from sora_tpu_torch.phy.dot11n import tx as ntx
+    from sora_tpu_torch.util.xfer import fetch
+
+    arr = psdus_1500(HT_BATCH, seed=14)
+    w = ntx.modulate(torch.from_numpy(arr).to(dev), 15, PSDU_LEN,
+                     short_gi=True)
+    N = w.shape[-1] + 400
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    xd = ht_place(torch, dev, w, [30 + (7 * i) % 300 for i in range(HT_BATCH)],
+                  N, gen)
+    got = {}
+    for sgi in (True, False):
+        vc.LAUNCHES = 0
+        out = fetch(nrx.rx_pipeline(xd, 15, max_psdu=MAX_PSDU, short_gi=sgi))
+        launched(vc, f"rx_pipeline short_gi={sgi}", 2)
+        got[sgi] = int(out["ok"].sum())
+        if sgi and not (out["psdu"][:, :PSDU_LEN] == arr).all():
+            raise AssertionError("the short-GI PSDUs differ")
+    print(f"rx_pipeline MCS 15 short GI {HT_BATCH}x2x{N}: ok "
+          f"{got[True]}/{HT_BATCH} with short_gi=True, ok {got[False]} "
+          "through the long-GI call", flush=True)
+    if got[True] != HT_BATCH or got[False] != 0:
+        raise AssertionError("short GI: wrong ok counts")
+    return 2 * 2
+
+
+def ht_mixed_phase(torch, dev, vc, parity, one_ss: bool) -> dict:
+    """Phase 14: the mixed-MCS receivers at full width, 128 streams, 16
+    per MCS (8-15 through ``rx_pipeline_auto``, 0-7 through
+    ``rx_pipeline_auto_1ss``), 1500-byte frames from the card's TX plus
+    noise 0.02 in a window that holds the slowest MCS's frame + 400."""
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+    from sora_tpu_torch.phy.dot11n import tx as ntx
+    from sora_tpu_torch.util.xfer import fetch
+
+    mcss = list(range(8)) if one_ss else list(range(8, 16))
+    arr = psdus_1500(HT_BATCH, seed=15 + one_ss)  # row i at mcss[i % 8]
+    rows = torch.from_numpy(arr).to(dev)
+    waves = [ntx.modulate(rows[ri::8], mc, PSDU_LEN)
+             for ri, mc in enumerate(mcss)]
+    N = max(w.shape[-1] for w in waves) + 400
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15 + one_ss)
+    x = torch.zeros(HT_BATCH, 2, N, dtype=torch.complex64, device=dev)
+    for i in range(HT_BATCH):
+        w = waves[i % 8][i // 8]
+        off = 30 + (7 * (i // 8)) % 300
+        x[i, :, off: off + w.shape[-1]] = w
+    nz = torch.randn(2, HT_BATCH, 2, N, generator=gen, device=dev) * HT_NOISE
+    x = x + torch.complex(nz[0], nz[1])
+    pipe = nrx.rx_pipeline_auto_1ss if one_ss else nrx.rx_pipeline_auto
+    run = lambda: pipe(x, max_psdu=MAX_PSDU)
+    run()
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = run()
+        torch.cuda.synchronize()
+    launches = launched(vc, pipe.__name__, 2)
+    host = fetch(out)
+    want_mcs = np.array([mcss[i % 8] for i in range(HT_BATCH)])
+    n_ok = int(host["ok"].sum())
+    print(f"{pipe.__name__} {HT_BATCH}x2x{N}, 16 streams per MCS "
+          f"{mcss[0]}-{mcss[-1]}: ok {n_ok}/{HT_BATCH}, kernel launches "
+          f"{launches}", flush=True)
+    if (n_ok != HT_BATCH or not (host["mcs"] == want_mcs).all()
+            or not (host["psdu"][:, :PSDU_LEN] == arr).all()):
+        raise AssertionError(f"the {pipe.__name__} batch did not decode")
+    cpu = fetch(pipe(x[:8].cpu(), max_psdu=MAX_PSDU))
+    check_rows(host, cpu, 8, HT_ROW_KEYS + ("cs_ok", "lts1"))
+    print("card and CPU agree on the first 8 rows (one per MCS)", flush=True)
+    for name, ab in zip(("HT-SIG", "data"), seen):
+        parity(f"{pipe.__name__} {name} soft", ab, *auto_window(ab.shape[1]),
+               True)
+    for _ in range(2):
+        run()
+    ms = sorted(cuda_ms(run, 5) for _ in range(3))[1]
+    print(f"{pipe.__name__}: {ms:.3f} ms/batch (events, median of 3 windows "
+          f"of 5); {HT_BATCH * N / ms / 1e3:.1f} Msamples/s per antenna, "
+          f"{HT_BATCH * PSDU_LEN * 8 / ms / 1e3:.1f} Mbps decoded",
+          flush=True)
+    return {"batch": [HT_BATCH, 2, N], "trellis": list(seen[1].shape[:2]),
+            "ms": ms, "msamples_per_s_per_antenna": HT_BATCH * N / ms / 1e3,
+            "decoded_mbps": HT_BATCH * PSDU_LEN * 8 / ms / 1e3,
+            "launches": launches}
+
+
+def ht_soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
+    """Phase 15: the 11n soak air (tools/realtime_soak.py --phy n): one
+    round under set_sync_debug_mode("error"), the kernel on the round's
+    own Viterbi inputs, the round's device time, then ``run_rx_soak(phy=
+    "n")`` with every frame position-matched and 2 launches per round."""
+    from sora_tpu_torch.tools import realtime_soak as soak
+    from sora_tpu_torch.util.xfer import fetch
+
+    air, _, span = soak.make_rx_soak_air(phy="n")
+    period = span + soak.SOAK_GAP["n"]
+    tx = [(int((off // period) % 64), int(off), 1.0)
+          for off in range(1000, air.advance, period)]
+    for _ in range(2):
+        outs, _ = air.step(tx)
+    fetch(outs[0]["ok"])
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs, base = air.step(tx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched(vc, "one 11n soak round", 2)
+    out = fetch(outs[0])
+    print(f"11n soak round ({air.batch}x2x{air.window}, hop {air.hop}): no "
+          f"host sync inside DeviceAir.step (set_sync_debug_mode('error')); "
+          f"{int(out['ok'].sum())} ok rows of {len(out['ok'])} for {len(tx)} "
+          "frames sent", flush=True)
+    for name, ab in zip(("HT-SIG", "data"), seen):
+        parity(f"11n soak round {name} soft", ab, *auto_window(ab.shape[1]),
+               True)
+    kern = kernel_timing(vc, seen[1], int32_ops_per_s)
+    print_kernel("11n soak", kern)
+    dev_ms, dev_launches, top = profile_device(lambda: air.step(tx), 3)
+
+    log = lambda *a: print("  11n soak:", *a, flush=True)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    res = soak.run_rx_soak(HT_SOAK_SECONDS, SOAK_DEPTH, log, phy="n")
+    torch.cuda.synchronize()
+    n_rounds = res["rounds"] + res["warm_rounds"]
+    launches = launched(vc, "the 11n soak", 2 * n_rounds)
+    wall_round_ms = res["wall_seconds"] * 1e3 / res["rounds"]
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_round_ms
+    print(f"11n soak: {res['air_seconds']} s of 20 Msps 2-antenna air in "
+          f"{res['wall_seconds']} s wall, real-time ratio {res['ratio']}; "
+          f"{res['msps']} Msamples/s per antenna, {res['decoded_mbps']} Mbps "
+          f"decoded; frames delivered {res['frames_delivered']}/"
+          f"{res['frames_scheduled']}; kernel launches {launches} in "
+          f"{n_rounds} rounds ({launches / n_rounds:g} per round)",
+          flush=True)
+    if dev_ms is None:
+        print("11n soak round device time: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"11n soak round device time: {dev_ms:.3f} ms of "
+              f"{wall_round_ms:.3f} ms wall per round in the soak (idle share "
+              f"{idle:.3f}), {dev_launches:.0f} device launches per round; "
+              "top:", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    print(card, flush=True)
+    return {"result": res, "launches": launches,
+            "launches_per_round": launches / n_rounds,
+            "round": {"device_ms": dev_ms, "wall_ms": wall_round_ms,
+                      "idle_share": idle, "device_launches": dev_launches},
+            "kernel": kern}
+
+
+def _ht_windows(node, src: np.ndarray, batches: int) -> np.ndarray:
+    """The (2, N) source tiled to ``batches`` node batches plus the overlap
+    on each antenna."""
+    cfg = node.cfg
+    n = cfg.overlap + (cfg.window - cfg.overlap) * cfg.batch * batches
+    return np.tile(src, (1, -(-n // src.shape[-1])))[:, :n]
+
+
+def ht_node_phase(torch, dev, vc, parity, int32_ops_per_s, card) -> dict:
+    """Phase 16: the 11n node on two rings at the configuration of
+    ``apps/node.py --phy n --synthetic 400 --mixed --batch 64``: one batch
+    card against CPU, two steps without an implicit host sync, then the
+    400 mixed-MCS frames written once into both rings and decoded until
+    idle."""
+    from sora_tpu_torch.apps.node import synthetic_traffic
+    from sora_tpu_torch.mac.frame import build_ack_frame
+    from sora_tpu_torch.runtime.native import RxRing
+    from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
+    from sora_tpu_torch.util.xfer import I16_SCALE, device_quantized, fetch
+
+    cfg = NodeConfig(addr=NODE_ADDR, **HT_NODE_CFG)
+    hop = cfg.window - cfg.overlap
+    nsamp = cfg.window + hop * (cfg.batch - 1)
+    air_s = nsamp / cfg.sample_rate_sps
+    rings = [RxRing(capacity=HT_NODE_RING) for _ in range(2)]
+    node = StreamingNode(rings, cfg, tx_sink=TxSink(), device=dev)
+    t0 = time.perf_counter()
+    node.warm_up()
+    warm_s = time.perf_counter() - t0
+    src = synthetic_traffic(HT_NODE_FRAMES, NODE_ADDR, mixed=True, rate=8,
+                            gap=hop, phy="n", device=dev)
+    print(f"11n node: window {cfg.window} overlap {cfg.overlap} hop {hop} "
+          f"batch {cfg.batch}, two rings of {HT_NODE_RING}, {nsamp} samples "
+          f"= {air_s * 1e3:.2f} ms of air per batch, wire {cfg.wire}; "
+          f"warm-up {warm_s:.2f} s; traffic 2x{src.shape[-1]} samples "
+          f"({HT_NODE_FRAMES} frames of 148 bytes, MCS 8-15, gap {hop})",
+          flush=True)
+
+    # ---- one batch, card against CPU ----------------------------------------
+    hs = []
+    for a in range(2):
+        feed = RxRing(capacity=HT_NODE_RING)
+        vs = feed.alloc_vstream()
+        feed.write(_ht_windows(node, src, 1)[a])
+        hs.append(feed.read_windows(vs, cfg.window, hop, cfg.batch,
+                                    I16_SCALE, np.int16)[0])
+        feed.close()
+    h = np.stack(hs, axis=1)                        # (B, 2, window, 2)
+    xd = device_quantized(h, dev)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = fetch(node._decode(xd))
+    launched(vc, "one 11n node batch", 4)
+    cpu = fetch(node._decode(device_quantized(h[:HT_CPU_ROWS], "cpu")))
+    for k in (1, 2):
+        for key in ("ok", "length", "psdu", "mcs"):
+            if not np.array_equal(cpu[k][key], out[k][key][:HT_CPU_ROWS]):
+                raise AssertionError(f"11n node batch: card and CPU disagree "
+                                     f"on {key}")
+    n_ok = int(out[1]["ok"].sum() + out[2]["ok"].sum())
+    if n_ok == 0:
+        raise AssertionError("the 11n node batch decoded nothing")
+    print(f"11n node batch {cfg.batch}x2x{cfg.window} (i16 wire, n_both): "
+          f"{n_ok} ok rows (2x2 {int(out[1]['ok'].sum())}, single-stream "
+          f"{int(out[2]['ok'].sum())}), Viterbi inputs "
+          f"{[tuple(s.shape) for s in seen]}, kernel launches 4; card and "
+          f"CPU agree on ok, length, psdu, mcs of the first {HT_CPU_ROWS} "
+          "windows in both pipelines", flush=True)
+    for ab in seen:
+        parity("11n node batch soft", ab, *auto_window(ab.shape[1]), True)
+    kern = kernel_timing(vc, seen[1], int32_ops_per_s)
+    print_kernel("11n node 2x2 data", kern)
+
+    # ---- two steps without an implicit host sync ----------------------------
+    for a, r in enumerate(rings):
+        r.write(_ht_windows(node, src, 3)[a])
+    node.step()
+    node.cache.get(build_ack_frame(b"\x02PEER0"), cfg.ack_rate)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        node.step()
+        node.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    node.flush()
+    if node.stats.decoded_batches < 3 or node.stats.frame_ok == 0:
+        raise AssertionError("the checked 11n steps did not decode:\n"
+                             + node.report())
+    print("11n node step: no implicit host sync while it assembles, uploads "
+          "and issues detect and decode on two rings "
+          "(set_sync_debug_mode('error'), 2 steps); "
+          f"{node.stats.frame_ok} frames in {node.stats.decoded_batches} "
+          "batches", flush=True)
+    for r in rings:
+        r.close()
+
+    # ---- the 400 frames, written once, decoded until idle -------------------
+    rings = [RxRing(capacity=HT_NODE_RING) for _ in range(2)]
+    node = StreamingNode(rings, cfg, tx_sink=TxSink(), device=dev)
+    node.warm_up()
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for a, r in enumerate(rings):
+        r.write(src[a])
+    idle = 0
+    while idle < 3:
+        idle = 0 if node.step() else idle + 1
+    node.flush()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    for r in rings:
+        r.close()
+    st, rep = node.stats, node.sw.report()
+    batches = st.decoded_batches
+    launches = launched(vc, "the 11n node run", 4 * batches)
+    wall_batch_ms = run_s * 1e3 / max(1, batches)
+    print(f"11n node run ({HT_NODE_FRAMES} frames written once, stepped to "
+          f"idle): frame_ok {st.frame_ok}, crc_fail {st.crc_fail}, plcp_fail "
+          f"{st.plcp_fail}, dup {st.dup}, cs_timeout {st.cs_timeout}, acks "
+          f"{st.acks_tx}; decoded batches {batches}, kernel launches "
+          f"{launches} (4 per batch); {run_s:.2f} s wall, {wall_batch_ms:.2f} "
+          f"ms per batch of {air_s * 1e3:.2f} ms air, MacStopwatch avg ratio "
+          f"{rep.avg_ratio:.4f} (max {rep.max_ratio:.4f}; not gated)",
+          flush=True)
+    if (st.frame_ok < 0.98 * HT_NODE_FRAMES
+            or st.crc_fail > 0.02 * HT_NODE_FRAMES):
+        raise AssertionError("11n node run failed:\n" + node.report())
+
+    # device-only: detect + decode of one batch, CUDA events and profiler
+    issue = lambda: (node._detect(xd), node._decode(xd))
+    issue()
+    dev_only_ms = cuda_ms(issue, 10)
+    dev_ms, dev_launches, top = profile_device(issue, 3)
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_batch_ms
+    print(f"11n node device-only: {dev_only_ms:.3f} ms detect+decode per "
+          f"batch (events, 10 calls) over {air_s * 1e3:.2f} ms of air: ratio "
+          f"{dev_only_ms / 1e3 / air_s:.4f}", flush=True)
+    if dev_ms is None:
+        print("11n node batch device time: not measured (the profiler saw "
+              "no device events)", flush=True)
+    else:
+        print(f"11n node batch device time: {dev_ms:.3f} ms per "
+              f"detect+decode ({dev_launches:.0f} device launches); idle "
+              f"share of the run {idle:.4f}; top:", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    print(card, flush=True)
+    return {"config": {"window": cfg.window, "overlap": cfg.overlap,
+                       "hop": hop, "batch": cfg.batch,
+                       "air_ms_per_batch": air_s * 1e3},
+            "warm_s": warm_s, "frames": st.frame_ok,
+            "crc_fail": st.crc_fail, "plcp_fail": st.plcp_fail,
+            "dup": st.dup, "decoded_batches": batches, "launches": launches,
+            "run_s": run_s, "wall_ms_per_batch": wall_batch_ms,
+            "avg_ratio": rep.avg_ratio, "max_ratio": rep.max_ratio,
+            "device_only_ms": dev_only_ms,
+            "device_only_ratio": dev_only_ms / 1e3 / air_s,
+            "device_ms_per_batch": dev_ms,
+            "device_launches_per_batch": dev_launches, "idle_share": idle,
+            "kernel": kern, "shapes": [list(s.shape[:2]) for s in seen]}
+
 
 
 def main() -> int:
@@ -1009,6 +1550,37 @@ def main() -> int:
     paths["node"] = node["launches"]
     paths["bridge"] = node["bridge_launches"]
 
+    # ---- 12-16. 802.11n -----------------------------------------------------
+    ht_tx = ht_tx_phase(torch, dev, vc)
+    paths["11n tx decodes"] = ht_tx["launches"]
+    ht15 = ht_fixed_phase(torch, dev, vc, parity, int32_ops_per_s, 15, 13)
+    paths["rx_pipeline 11n MCS 15"] = ht15["launches"]
+    ht7 = ht_fixed_phase(torch, dev, vc, parity, int32_ops_per_s, 7, 17)
+    paths["rx_pipeline_1ss MCS 7"] = ht7["launches"]
+    paths["rx_pipeline 11n short GI"] = ht_sgi_phase(torch, dev, vc)
+    ht_auto = ht_mixed_phase(torch, dev, vc, parity, False)
+    paths["rx_pipeline_auto 11n"] = ht_auto["launches"]
+    ht_auto1 = ht_mixed_phase(torch, dev, vc, parity, True)
+    paths["rx_pipeline_auto_1ss"] = ht_auto1["launches"]
+    ht_soak = ht_soak_phase(torch, vc, parity, int32_ops_per_s, card)
+    paths["11n soak"] = ht_soak["launches"]
+    ht_node = ht_node_phase(torch, dev, vc, parity, int32_ops_per_s, card)
+    paths["11n node"] = ht_node["launches"]
+    ht_shapes = [
+        {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
+         "launches_per_call": 1},
+        {"path": "rx_pipeline MCS 15 data", **ht15["kernel"]["data"],
+         "launches_per_call": 1},
+        {"path": "rx_pipeline_1ss MCS 7 HT-SIG", **ht7["kernel"]["htsig"],
+         "launches_per_call": 1},
+        {"path": "rx_pipeline_1ss MCS 7 data", **ht7["kernel"]["data"],
+         "launches_per_call": 1},
+        {"path": "11n soak round data", **ht_soak["kernel"],
+         "launches_per_round": ht_soak["launches_per_round"]},
+        {"path": "11n node batch 2x2 data", **ht_node["kernel"],
+         "launches_per_batch":
+             ht_node["launches"] / ht_node["decoded_batches"]}]
+
     summary = {"card": card, "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s,
                "batch": [BATCH, N], "trellis": [BATCH, T],
@@ -1025,6 +1597,10 @@ def main() -> int:
                "mixed_rate": mixed, "rx_soak": soak["result"],
                "rx_soak_round": soak["round"], "convo": convo,
                "node": node,
+               "dot11n": {"tx": ht_tx, "mcs15": ht15, "mcs7": ht7,
+                          "auto": ht_auto, "auto_1ss": ht_auto1,
+                          "soak": ht_soak["result"],
+                          "soak_round": ht_soak["round"], "node": ht_node},
                "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
@@ -1039,17 +1615,13 @@ def main() -> int:
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "launches_by_path": paths,
-        "soak_shape": soak["shape"], "soak_ms": soak["ms"],
-        "soak_plain_ms": soak["plain_ms"],
-        "soak_bound_ms": soak["bound_ms"],
-        "soak_bound_by": soak["bound_by"],
+        **{f"{path}_{key}": res["kernel"][key]
+           for path, res in (("soak", soak), ("node", node))
+           for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
         "soak_launches_per_round": soak["launches_per_round"],
-        "node_shape": node["shape"], "node_ms": node["ms"],
-        "node_plain_ms": node["plain_ms"],
-        "node_bound_ms": node["bound_ms"],
-        "node_bound_by": node["bound_by"],
         "node_launches_per_batch":
-            node["launches"] / node["decoded_batches"]}]}
+            node["launches"] / node["decoded_batches"],
+        "ht_shapes": ht_shapes}]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

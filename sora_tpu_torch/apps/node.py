@@ -1,5 +1,5 @@
 """Live SDR node CLI — the umxsdrbrick analogue over replay/synthetic air
-(port of ``sora_tpu.apps.node``, phy "a").
+(port of ``sora_tpu.apps.node``, phy "a" and "n").
 
 Boots the native RX ring, starts a paced producer (dump replay or
 synthetic multi-frame traffic), runs the StreamingNode poll loop (batched
@@ -13,6 +13,11 @@ Examples
 Synthetic 24 Mbps traffic, paced at 20 Msps, on the card::
 
     python -m sora_tpu_torch.apps.node --synthetic 400 --rate 24 --pace 20e6
+
+Synthetic mixed-MCS 2x2 HT traffic on two rings (11n mode)::
+
+    python -m sora_tpu_torch.apps.node --phy n --synthetic 400 --mixed \
+        --batch 64
 
 Replay a 40 Msps dump, looped::
 
@@ -31,6 +36,7 @@ import time
 import numpy as np
 
 _A_RATES = [6, 9, 12, 18, 24, 36, 48, 54]
+_N_MCS = list(range(8, 16))
 
 
 def _log(*a):
@@ -41,13 +47,16 @@ def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
                       rate: float, gap: int = 900, seed: int = 7,
                       phy: str = "a", device=None) -> np.ndarray:
     """A 20 Msps stream of n_frames 148-byte data frames addressed to
-    `addr`, rate-mixed over the 8 OFDM rates if requested, separated by
-    idle gaps, plus noise at 0.01.  The payloads and the noise are drawn
-    from one numpy generator as in the JAX package; the frames are
-    modulated by the port's TX on ``device`` (default cuda), one batched
-    call per rate."""
+    `addr`, separated by idle gaps, plus noise at 0.01.  phy "a": (N,),
+    rate-mixed over the 8 OFDM rates if requested; phy "n": (nss, N), one
+    row per TX chain (2 for MCS 8-15, mixed over them if requested), with
+    the gap at least 3200 (a node's hop must stay within the gap).  The
+    payloads and the noise are drawn from one numpy generator as in the
+    JAX package; the frames are modulated by the port's TX on ``device``
+    (default cuda), one batched call per rate."""
     from sora_tpu_torch.mac.frame import MacHeader, append_fcs
     from sora_tpu_torch.phy.dot11a import tx as atx
+    from sora_tpu_torch.phy.dot11n import tx as ntx
     from sora_tpu_torch.runtime.device_air import NOT_PORTED
     from sora_tpu_torch.util.xfer import fetch, resolve_device, upload
 
@@ -55,7 +64,13 @@ def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
         raise NotImplementedError(NOT_PORTED[phy])
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    rates = _A_RATES if mixed else [int(rate)]
+    if phy == "n":
+        rates = _N_MCS if mixed else [int(rate)]
+        gap = max(gap, 3200)
+        modulate = ntx.modulate
+    else:
+        rates = _A_RATES if mixed else [int(rate)]
+        modulate = atx.modulate
     psdus = []
     for i in range(n_frames):
         hdr = MacHeader(addr1=addr, addr2=b"\x02PEER0", addr3=addr,
@@ -69,24 +84,24 @@ def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
         if not idx:
             continue
         arr = np.stack([psdus[i] for i in idx])
-        w = fetch(atx.modulate(upload(arr, dev), r, arr.shape[1]))
+        w = fetch(modulate(upload(arr, dev), r, arr.shape[1]))
         for k, i in enumerate(idx):
             waves[i] = w[k]
     pieces = []
     for w in waves:
-        pieces.append(np.zeros(gap, np.complex64))
+        pieces.append(np.zeros(w.shape[:-1] + (gap,), np.complex64))
         pieces.append(w)
-    pieces.append(np.zeros(gap, np.complex64))
-    x = np.concatenate(pieces)
+    pieces.append(np.zeros(pieces[0].shape[:-1] + (gap,), np.complex64))
+    x = np.concatenate(pieces, axis=-1)
     x += (rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
           ).astype(np.complex64) * 0.01
     return x
 
 
-def _process_kb(node) -> bool:
+def _process_kb(node, phy: str = "a") -> bool:
     """Non-blocking stdin control — the reference UI loop's live
     reconfiguration (process_kb, dot11main.cpp:148-204).  Keys:
-    1-8 fixed rate, 0 auto dispatch, t/T detect threshold down/up,
+    1-8 fixed rate/MCS, 0 auto dispatch, t/T detect threshold down/up,
     p promiscuous toggle, s status page, q quit.  Returns False on q."""
     import select
 
@@ -109,8 +124,11 @@ def _process_kb(node) -> bool:
             node.reconfigure(detect_threshold=thr)
             _log(f"detect_threshold={thr:.3f}")
         elif ch == "0":
-            node.reconfigure(rate_mbps=None, warm=True)
+            node.reconfigure(rate_mbps=None, mcs=None, warm=True)
             _log("rate=auto")
+        elif ch.isdigit() and phy == "n":
+            node.reconfigure(mcs=8 + int(ch) - 1, warm=True)
+            _log(f"mcs={8 + int(ch) - 1}")
         elif ch.isdigit() and int(ch) - 1 < len(_A_RATES):
             node.reconfigure(rate_mbps=_A_RATES[int(ch) - 1], warm=True)
             _log(f"rate={_A_RATES[int(ch) - 1]} Mbps")
@@ -119,15 +137,20 @@ def _process_kb(node) -> bool:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sora_tpu_torch.apps.node",
                                 description=__doc__.split("\n")[0])
+    p.add_argument("--phy", default="a", choices=("a", "b", "n"),
+                   help="PHY mode (umxsdrbrick -b / -n flags; b is not "
+                        "ported)")
     p.add_argument("--dump", help="replay a Sora dump file into the ring")
     p.add_argument("--loop", action="store_true",
                    help="loop the replay source")
     p.add_argument("--synthetic", type=int, metavar="N", default=0,
                    help="generate N synthetic data frames instead")
     p.add_argument("--mixed", action="store_true",
-                   help="synthetic traffic cycles all 8 rates")
-    p.add_argument("--rate", type=float, default=6.0,
-                   help="synthetic traffic rate in Mbps")
+                   help="synthetic traffic cycles all 8 rates (MCS 8-15 "
+                        "with --phy n)")
+    p.add_argument("--rate", type=float, default=0.0,
+                   help="synthetic traffic rate: Mbps (11a) or MCS index "
+                        "(11n); 0 = per-phy default")
     p.add_argument("--pace", type=float, default=0.0,
                    help="producer pacing in samples/s (0 = unpaced); "
                         "dump replay defaults to its design rate")
@@ -142,7 +165,7 @@ def main(argv=None) -> int:
     p.add_argument("--status-every", type=float, default=0.0,
                    help="print the status page every S seconds")
     p.add_argument("--keys", action="store_true",
-                   help="interactive stdin control: 1-8 rate, 0 auto, "
+                   help="interactive stdin control: 1-8 rate/MCS, 0 auto, "
                         "t/T threshold, p promiscuous, s status, q quit "
                         "(process_kb, dot11main.cpp:148-204)")
     p.add_argument("--config", default=None,
@@ -168,7 +191,11 @@ def main(argv=None) -> int:
     from sora_tpu_torch.util.config import load_config
 
     addr = b"\x02SORA1"
+    rate = args.rate or {"a": 6, "b": 2, "n": 8}[args.phy]
     if args.dump:
+        if args.phy != "a":
+            p.error("--dump replay is the 11a capture path; use "
+                    "--synthetic with --phy n")
         src = parse_dump(args.dump)
         input_rate = "40m" if args.msps == 40 else "20m"
         rate_sps = args.pace or float(args.msps) * 1e6
@@ -178,21 +205,32 @@ def main(argv=None) -> int:
     else:
         if not args.synthetic:
             p.error("need --dump or --synthetic N")
-        src = synthetic_traffic(args.synthetic, addr, args.mixed, args.rate,
-                                device=args.device)
         input_rate = "20m"
         rate_sps = args.pace
         batch = args.batch or 8
         max_psdu = 256
-        min_rate = 6.0 if args.mixed else args.rate
+        if args.mixed:
+            min_rate = {"a": 6.0, "b": 1.0, "n": 8.0}[args.phy]
+        else:
+            min_rate = rate
 
     # window/overlap auto-size from (max_psdu, min_rate) inside
     # NodeConfig.__post_init__
     cfg = load_config(NodeConfig, path=args.config, overrides=dict(
-        window=args.window, batch=batch, overlap=0, input_rate=input_rate,
-        max_psdu=max_psdu, addr=addr, min_rate_mbps=min_rate,
-        wire=args.wire, sample_rate_sps=rate_sps or 20e6))
-    if args.rx_gain is not None or args.freq_offset or args.tune_error:
+        phy=args.phy, window=args.window, batch=batch, overlap=0,
+        input_rate=input_rate, max_psdu=max_psdu, addr=addr,
+        min_rate_mbps=min_rate, wire=args.wire,
+        mcs=(None if args.mixed or args.phy != "n" else int(rate)),
+        sample_rate_sps=rate_sps or 20e6))
+    if not args.dump:
+        # the HT node locks one preamble per window, so the hop must stay
+        # within the inter-frame gap (every frame then has a window that
+        # starts in the gap before it)
+        gap = cfg.window - cfg.overlap if args.phy == "n" else 900
+        src = synthetic_traffic(args.synthetic, addr, args.mixed, rate,
+                                gap=gap, phy=args.phy, device=args.device)
+    if (args.rx_gain is not None or args.freq_offset
+            or args.tune_error) and src.ndim == 1:
         # run the source through the radio front end (gain, tuning) —
         # the SoraURadioSetRxGain/SetCentralFreq path over software
         from sora_tpu_torch.runtime.radio import SoftRadio
@@ -206,10 +244,14 @@ def main(argv=None) -> int:
         _log(f"radio: rx_gain={radio.state.rx_gain_db} dB "
              f"tune_error={args.tune_error:+.0f} Hz "
              f"freq_offset={args.freq_offset:+.0f} Hz")
-    ring = RxRing(capacity=1 << 22)
+    # 11n reads two rings, one per antenna; a single-chain (MCS 0-7)
+    # source feeds both
+    rings = [RxRing(capacity=1 << 22)
+             for _ in range(2 if args.phy == "n" else 1)]
     try:
-        node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=args.device)
-        _log(f"node: window={cfg.window} batch={cfg.batch} "
+        node = StreamingNode(rings if args.phy == "n" else rings[0], cfg,
+                             tx_sink=TxSink(), device=args.device)
+        _log(f"node: phy={args.phy} window={cfg.window} batch={cfg.batch} "
              f"overlap={cfg.overlap} front_end={input_rate} "
              f"pace={(rate_sps or 20e6) / 1e6:.1f} Msps "
              f"src={src.shape[-1]} samples loop={bool(args.loop or args.dump)}"
@@ -218,8 +260,10 @@ def main(argv=None) -> int:
         node.warm_up()
         _log(f"warm-up (kernel build, tables) in "
              f"{time.perf_counter() - t0:.1f}s")
-        ring.start_replay(src, rate_sps=rate_sps,
-                          loop=bool(args.loop) or bool(args.dump))
+        for a, r in enumerate(rings):
+            r.start_replay(src[min(a, len(src) - 1)] if src.ndim == 2
+                           else src, rate_sps=rate_sps,
+                           loop=bool(args.loop) or bool(args.dump))
         t_end = time.perf_counter() + args.seconds
         t_status = time.perf_counter() + (args.status_every or 1e9)
         try:
@@ -229,13 +273,15 @@ def main(argv=None) -> int:
                 if time.perf_counter() >= t_status:
                     _log(node.stats.status_page())
                     t_status = time.perf_counter() + args.status_every
-                if args.keys and not _process_kb(node):
+                if args.keys and not _process_kb(node, args.phy):
                     break
         finally:
-            ring.stop()
+            for r in rings:
+                r.stop()
         node.flush()
     finally:
-        ring.close()
+        for r in rings:
+            r.close()
     print(node.report())
     rep = node.sw.report()
     ok = node.stats.frame_ok > 0 and rep.avg_ratio < 1.0

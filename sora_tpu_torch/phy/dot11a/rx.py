@@ -519,12 +519,14 @@ def decode_data(eq: torch.Tensor, length: torch.Tensor, rate_mbps: int,
     return psdu, fcs_ok, nbits
 
 
-def _finish_frame(bits: torch.Tensor, length: torch.Tensor, t_steps: int):
-    """Shared frame tail: descramble (seed phase from the first 7 bits),
-    pack PSDU bytes LSB-first, check the FCS on device.
+def _finish_frame(bits: torch.Tensor, length: torch.Tensor, t_steps: int,
+                  max_psdu: int = MAX_PSDU):
+    """Shared frame tail (of the 11a and 11n receivers): descramble (seed
+    phase from the first 7 bits), pack PSDU bytes LSB-first, check the FCS
+    on device.
 
     bits: (B, t_steps) decoded data bits; length: (B,) PSDU byte counts.
-    Returns (psdu (B, MAX_PSDU) uint8, fcs_ok (B,) bool)."""
+    Returns (psdu (B, max_psdu) uint8, fcs_ok (B,) bool)."""
     B = bits.shape[0]
     phases = _consts(bits.device)["phases"]            # (127, 127) uint8
     bits = bits.to(torch.uint8)
@@ -539,18 +541,18 @@ def _finish_frame(bits: torch.Tensor, length: torch.Tensor, t_steps: int):
     weights = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
     psdu = torch.sum(payload.to(torch.int32) * weights, dim=-1).to(
         torch.uint8)
-    if nbytes_max < MAX_PSDU:
-        psdu = torch.cat([psdu, psdu.new_zeros(B, MAX_PSDU - nbytes_max)],
+    if nbytes_max < max_psdu:
+        psdu = torch.cat([psdu, psdu.new_zeros(B, max_psdu - nbytes_max)],
                          dim=1)
-    psdu = psdu[:, :MAX_PSDU]
+    psdu = psdu[:, :max_psdu]
     # FCS check on device (int64 registers: no uint32 arithmetic in torch)
     length = length.to(torch.int64)
     body_crc = dcrc.crc32_batch(psdu, length - 4)
     idx = (length[:, None] - 4 + torch.arange(4, device=bits.device)[None, :]
-           ).clamp(0, MAX_PSDU - 1)
+           ).clamp(0, max_psdu - 1)
     fb = psdu.gather(1, idx).to(torch.int64)
     rx_fcs = fb[:, 0] | (fb[:, 1] << 8) | (fb[:, 2] << 16) | (fb[:, 3] << 24)
-    fcs_ok = (body_crc == rx_fcs) & (length >= 4) & (length <= MAX_PSDU)
+    fcs_ok = (body_crc == rx_fcs) & (length >= 4) & (length <= max_psdu)
     return psdu, fcs_ok
 
 

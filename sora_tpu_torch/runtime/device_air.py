@@ -1,5 +1,5 @@
 """Device-resident software air: the real-time path of the live node
-(port of ``sora_tpu.runtime.device_air``, phy "a").
+(port of ``sora_tpu.runtime.device_air``, phy "a" and "n").
 
 The reference's defining claim is sustained real-time 802.11 processing
 (processing cost / signal duration < 1.0, kernel/bb/demod11/
@@ -18,7 +18,10 @@ reference's RCB DMA ring keeps samples off the PCIe bus:
   rounds on the card, so the air is a gapless 20 Msps stream: frames
   straddling a round boundary decode in the next round's first window;
 * with ``n_receivers=2`` the same air is decoded through two independent
-  receiver noise draws (two nodes sharing a channel).
+  receiver noise draws (two nodes sharing a channel);
+* phy "n" carries two antennas: the cache holds (2, L) per-chain pairs,
+  the carry is (2, carry_len) and each window runs the 2x2 mixed-MCS
+  receiver.
 
 A round makes no host sync: the descriptors go up from pinned memory
 without blocking and :meth:`DeviceAir.step` returns device tensors, so
@@ -41,11 +44,11 @@ import torch
 from sora_tpu_torch.mac import frame as fr
 from sora_tpu_torch.phy.dot11a import rx as arx
 from sora_tpu_torch.phy.dot11a import tx as atx
+from sora_tpu_torch.phy.dot11n import rx as nrx
 from sora_tpu_torch.util.xfer import device_complex, resolve_device, upload
 
 NOT_PORTED = {
     "b": "phy='b' (the DSSS chain) is not ported: ROADMAP queue 1 item 9",
-    "n": "phy='n' (the 2x2 HT chain) is not ported: ROADMAP queue 1 item 8",
 }
 
 
@@ -53,15 +56,20 @@ class DeviceAir:
     """Continuous device-resident air + one air -> RX pass per round.
 
     waves: list of host complex waveforms (the TX cache; entry i is
-    referenced by descriptors).  All waves are zero-padded to a common
-    length L (a multiple of 256) on the device; complex amplitude scaling
-    happens per transmission descriptor (a multipath tap is just an extra
-    delayed descriptor).  The air keeps the JAX package's antenna axis
-    (one antenna for phy "a").
+    referenced by descriptors) — 1-D for phy "a", (2, n) per-chain pairs
+    for phy "n" (the air carries an antenna axis).  All waves are
+    zero-padded to a common length L (a multiple of 256) on the device;
+    complex amplitude scaling happens per transmission descriptor (a
+    multipath tap is just an extra delayed descriptor).
 
-    Each window runs ``rx_pipeline_auto`` with multi-onset candidates and
-    the ``min_rate_mbps`` cap.  Runs on ``device`` (default cuda; raises
-    without CUDA unless ``device="cpu"``).
+    phy selects the per-window decoder: "a" = the 11a ``rx_pipeline_auto``
+    with multi-onset candidates and the ``min_rate_mbps`` cap; "n" = the
+    2x2 HT ``rx_pipeline_auto`` (first-plateau lock, so ``n_frames`` is 1,
+    with the ``min_mcs`` cap).  The single-candidate chain carries a
+    geometry contract: the scheduler keeps hop <= inter-frame gap (every
+    frame has a window starting in its preceding gap) and overlap >= frame
+    span (containment).  Runs on ``device`` (default cuda; raises without
+    CUDA unless ``device="cpu"``).
     """
 
     def __init__(self, waves, *, window: int = 32768, batch: int = 64,
@@ -69,18 +77,21 @@ class DeviceAir:
                  n_decode: int = 0, slots: int = 384,
                  noise_rms: float = 0.02, max_psdu: int = 1504,
                  hdr_bytes: int = 64, n_receivers: int = 1,
-                 min_rate_mbps: int = 6, pad_len: int = 0,
-                 n_entries: int = 0, phy: str = "a", seed: int = 0,
-                 device=None):
+                 min_rate_mbps: int = 6, min_mcs: int = 8,
+                 pad_len: int = 0, n_entries: int = 0, phy: str = "a",
+                 seed: int = 0, device=None):
         if phy in NOT_PORTED:
             raise NotImplementedError(NOT_PORTED[phy])
-        if phy != "a":
+        if phy not in ("a", "n"):
             raise ValueError(f"unknown phy {phy!r}")
         if not 0 <= overlap < window:
             raise ValueError(f"overlap {overlap} must be in [0, {window})")
         self.device = dev = resolve_device(device)
         self.phy = phy
-        self.n_ant = A = 1
+        self.n_ant = A = 2 if phy == "n" else 1
+        if phy == "n":
+            n_frames = 1      # the HT chain locks one onset per window;
+            #                   the overlap covers the rest
         self.window, self.batch, self.overlap = window, batch, overlap
         self.hop = window - overlap
         self.nsamp = window + self.hop * (batch - 1)
@@ -93,12 +104,16 @@ class DeviceAir:
         self.n_decode = n_decode
         self.n_receivers = n_receivers
         self.min_rate_mbps = min_rate_mbps    # 11a air floor (Mbps)
+        self.min_mcs = min_mcs                # HT air floor (MCS index)
         waves = [np.atleast_2d(np.asarray(w, np.complex64)) for w in waves]
         L = max([w.shape[1] for w in waves] + [pad_len])
         self.L = L = -(-L // 256) * 256
         n_entries = max(n_entries, len(waves))
         cache = np.zeros((n_entries, A, L), np.complex64)
         for i, w in enumerate(waves):
+            if w.shape[0] != A:
+                raise ValueError(f"wave {i} has {w.shape[0]} chains; phy "
+                                 f"{phy!r} carries {A}")
             cache[i, :, : w.shape[1]] = w
         self._cache = device_complex(cache, dev)
         self.carry_len = self.nsamp - self.advance + L    # overlap + L
@@ -133,6 +148,8 @@ class DeviceAir:
         the PSDU bytes go up.  All PSDUs in a call share one length."""
         if not len(idxs):
             return
+        if self.phy != "a":
+            raise ValueError("on-card TX staging is the OFDM (phy 'a') path")
         psdus = np.asarray(psdus, np.uint8)
         plen = int(psdus.shape[1])
         if atx.waveform_len(rate, plen) > self.L:
@@ -178,16 +195,21 @@ class DeviceAir:
 
     def _receive(self, air: torch.Tensor) -> dict:
         """One receiver's decode of the round: its own front-end noise on
-        top of the shared air, then ``rx_pipeline_auto`` on the windows."""
+        top of the shared air, then the phy's ``rx_pipeline_auto`` on the
+        windows (B, A, window)."""
         sigma = self.noise_rms / np.sqrt(2.0)
         wins = air.unfold(-1, self.window, self.hop)[:, : self.batch]
         wn = torch.randn(2, self.batch, self.n_ant, self.window,
                          generator=self._gen, device=self.device)
         xw = wins.transpose(0, 1) + torch.complex(wn[0], wn[1]) * (
             0.5 * sigma)
-        out = arx.rx_pipeline_auto(
-            xw[:, 0], max_psdu=self.max_psdu, n_frames=self.n_frames,
-            n_decode=self.n_decode, min_rate_mbps=self.min_rate_mbps)
+        if self.phy == "n":
+            out = nrx.rx_pipeline_auto(xw, max_psdu=self.max_psdu,
+                                       min_mcs=self.min_mcs)
+        else:
+            out = arx.rx_pipeline_auto(
+                xw[:, 0], max_psdu=self.max_psdu, n_frames=self.n_frames,
+                n_decode=self.n_decode, min_rate_mbps=self.min_rate_mbps)
         keep = {k: out[k] for k in ("ok", "det", "length", "rate_mbps",
                                     "snr_db", "lts1", "truncated", "src")
                 if k in out}

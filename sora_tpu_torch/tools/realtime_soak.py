@@ -1,5 +1,5 @@
 """Sustained real-time demonstration on the device-resident air (port of
-``tools/realtime_soak.py``, phy "a").
+``tools/realtime_soak.py``, phy "a" and "n").
 
 The air lives in device memory (``runtime/device_air.py``): only TX
 descriptors go up and decoded headers come down, so the live loop runs
@@ -8,10 +8,12 @@ end to end (the reference's MACStopwatch bar, MACStopwatch.h:37-60: real
 time means a ratio below 1.0).
 
 Modes:
-  rx     (default) saturated RX soak: back-to-back 1492-byte 54 Mbps OFDM
-         frames at 20 Msps, every scheduled frame decoded and
-         position-matched.  --channel adds 4-tap in-CP multipath
-         synthesized on the card (one descriptor per tap).
+  rx     (default) saturated RX soak, every scheduled frame decoded and
+         position-matched.  --phy a: back-to-back 1492-byte 54 Mbps OFDM
+         frames at 20 Msps.  --phy n: 1492-byte MCS 15 2x2 HT frames on a
+         two-antenna air, with gaps of 8600 samples (the single-onset HT
+         lock needs hop <= gap).  --channel (phy a) adds 4-tap in-CP
+         multipath synthesized on the card (one descriptor per tap).
   convo  two-node conversation: A streams sequenced data frames to B, B
          block-acks every round, retries close the loop; both nodes'
          receivers run per round (independent noise).  The data frames
@@ -19,7 +21,8 @@ Modes:
 
 Usage (on a machine with a CUDA card):
     python3 -m sora_tpu_torch.tools.realtime_soak [--mode rx|convo]
-        [--channel] [--seconds 62] [--depth 6] [--json out.json]
+        [--phy a|n] [--channel] [--seconds 62] [--depth 6]
+        [--json out.json]
 
 Prints progress every 5 s to stderr and a one-line JSON summary to
 stdout.  The waveform cache comes from the port's own modulator.
@@ -39,7 +42,8 @@ import torch
 
 from sora_tpu_torch.mac import frame as fr
 from sora_tpu_torch.phy.dot11a import tx as atx
-from sora_tpu_torch.runtime.device_air import BatchMac, DeviceAir
+from sora_tpu_torch.phy.dot11n import tx as ntx
+from sora_tpu_torch.runtime.device_air import NOT_PORTED, BatchMac, DeviceAir
 from sora_tpu_torch.util.xfer import Pending, fetch, resolve_device, upload
 
 SPS = 20e6
@@ -51,18 +55,38 @@ CH_TAPS = [(0, 1.0), (3, 0.45 * np.exp(0.9j)),
            (7, 0.2 * np.exp(-2.1j)), (11, 0.08 * np.exp(0.3j))]
 
 
-def make_rx_soak_air(seed: int = 7, channel: bool = False, device=None):
-    """The canonical saturated-soak air: 64 cached 1492-byte 54 Mbps OFDM
-    frames (modulated on ``device`` by the port's TX), 64 windows of
-    32768 samples, overlap 6144, 7 candidates per window.  ``channel``
-    widens the descriptor budget for tap-expanded TX.  Returns (air,
-    psdus, span)."""
+# inter-frame gap and position-match tolerance of the rx soak, per phy
+SOAK_GAP = {"a": 640, "n": 8600}
+SOAK_MATCH_TOL = {"a": 600, "n": 2500}
+
+
+def make_rx_soak_air(seed: int = 7, channel: bool = False, device=None,
+                     phy: str = "a"):
+    """The canonical saturated-soak air: 64 cached 1492-byte frames
+    (modulated on ``device`` by the port's TX).  phy "a": 54 Mbps OFDM, 64
+    windows of 32768 samples, overlap 6144, 7 candidates per window;
+    ``channel`` widens the descriptor budget for tap-expanded TX.  phy
+    "n": MCS 15 2x2 HT on a two-antenna air, 512 windows of 11264, overlap
+    3072 (hop 8192 <= the soak's 8600-sample gap, so every frame has a
+    window starting in its preceding gap; overlap >= the frame span),
+    min_mcs 15, noise 0.01.  Returns (air, psdus, span)."""
+    if phy in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[phy])
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     psdus = [fr.build_data_frame(
         bytes(rng.integers(0, 256, 1464, dtype=np.uint8)), seq=i)
         for i in range(64)]
     arr = np.stack([np.frombuffer(p, np.uint8) for p in psdus])
+    if phy == "n":
+        waves = fetch(ntx.modulate(upload(arr, dev), 15, arr.shape[1]))
+        span = waves.shape[-1]
+        air = DeviceAir(list(waves), window=11264, batch=512, overlap=3072,
+                        slots=512, noise_rms=0.01, max_psdu=1504,
+                        hdr_bytes=64, phy="n", min_mcs=15, seed=seed,
+                        device=dev)
+        assert span <= air.overlap, (span, air.overlap)
+        return air, psdus, span
     waves = fetch(atx.modulate(upload(arr, dev), 54, arr.shape[1]))
     span = waves.shape[1]
     air = DeviceAir(list(waves), window=32768, batch=64, overlap=6144,
@@ -75,20 +99,23 @@ def make_rx_soak_air(seed: int = 7, channel: bool = False, device=None):
 
 
 def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
-                device=None) -> dict:
+                device=None, phy: str = "a") -> dict:
     """Raises AssertionError unless every scheduled frame is
     position-matched."""
-    air, psdus, span = make_rx_soak_air(channel=channel, device=device)
+    if channel and phy != "a":
+        raise ValueError("--channel is the 11a soak")
+    air, psdus, span = make_rx_soak_air(channel=channel, device=device,
+                                        phy=phy)
     taps = CH_TAPS if channel else [(0, 1.0)]
     if channel:
         log("channel: 4-tap in-CP multipath synthesized on the card "
             "(one descriptor per tap)")
-    gap = 640                                   # inter-frame gap
-    period = span + gap
+    period = span + SOAK_GAP[phy]
+    tol = SOAK_MATCH_TOL[phy]
     adv = air.advance
     air_per_round = adv / SPS
     n_rounds = int(np.ceil(seconds / air_per_round))
-    log(f"rx soak: {n_rounds} rounds x {air_per_round*1e3:.1f}"
+    log(f"rx soak [{phy}]: {n_rounds} rounds x {air_per_round*1e3:.1f}"
         f" ms air ({adv} samples), frame span {span}, period {period}, "
         f"~{adv//period} frames/round")
 
@@ -121,7 +148,7 @@ def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
             i = np.searchsorted(okpos, off + 192)
             hit = False
             for j in (i - 1, i):
-                if 0 <= j < len(okpos) and abs(okpos[j] - (off + 192)) < 600:
+                if 0 <= j < len(okpos) and abs(okpos[j] - (off + 192)) < tol:
                     hit = True
             delivered += int(hit)
 
@@ -161,7 +188,7 @@ def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
     if delivered != scheduled:
         raise AssertionError(f"delivered {delivered} of {scheduled} "
                              "scheduled frames")
-    return {"mode": "rx", "channel": bool(channel), "phy": "a",
+    return {"mode": "rx", "channel": bool(channel), "phy": phy,
             "rounds": n_rounds, "warm_rounds": warm_rounds,
             "air_seconds": round(air_t, 2),
             "wall_seconds": round(wall, 2), "ratio": round(ratio, 4),
@@ -279,6 +306,8 @@ def run_convo(seconds: float, depth: int, log, channel: bool = False,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("rx", "convo"), default="rx")
+    ap.add_argument("--phy", choices=("a", "b", "n"), default="a",
+                    help="the rx soak's PHY (phy b is not ported)")
     ap.add_argument("--seconds", type=float, default=62.0)
     ap.add_argument("--depth", type=int, default=6)
     ap.add_argument("--channel", action="store_true",
@@ -293,7 +322,7 @@ def main() -> int:
     log("device:", torch.cuda.get_device_name(dev))
     if args.mode == "rx":
         res = run_rx_soak(args.seconds, args.depth, log,
-                          channel=args.channel)
+                          channel=args.channel, phy=args.phy)
     else:
         res = run_convo(args.seconds, args.depth, log, channel=args.channel)
     line = json.dumps(res)

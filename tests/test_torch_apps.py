@@ -31,9 +31,20 @@ def test_synthetic_traffic_matches_jax(mixed, rate):
 
 
 def test_synthetic_traffic_phy_b_n_not_ported():
-    for phy in ("b", "n"):
-        with pytest.raises(NotImplementedError):
-            tapp.synthetic_traffic(2, ADDR, False, 6, phy=phy, device="cpu")
+    """phy "b" is not ported; phy "n" is: (2, N) 2x2 traffic, or (1, N)
+    single-stream, equal to the JAX app's within the TX tolerance."""
+    with pytest.raises(NotImplementedError):
+        tapp.synthetic_traffic(2, ADDR, False, 6, phy="b", device="cpu")
+    for mixed, mcs, gap in ((True, 8, 900), (False, 13, 4096),
+                            (False, 4, 3300)):
+        got = tapp.synthetic_traffic(10, ADDR, mixed, mcs, gap=gap,
+                                     phy="n", device="cpu")
+        want = japp.synthetic_traffic(10, ADDR, mixed, mcs, gap=gap,
+                                      phy="n")
+        assert got.dtype == want.dtype == np.complex64
+        assert got.shape == want.shape == ((1 if mcs < 8 else 2),
+                                           got.shape[-1])
+        assert np.abs(got - want).max() < TRAFFIC_ATOL
 
 
 def test_node_app_decodes_synthetic_traffic(capsys):
@@ -42,6 +53,32 @@ def test_node_app_decodes_synthetic_traffic(capsys):
     out = capsys.readouterr().out
     assert "frame_ok           24" in out, out
     assert "24 frames, 24 acks" in out, out
+
+
+class _PassClock:
+    """The app's clock for its run loop, advancing 1 ms a reading: the
+    loop makes the same number of passes however loaded the machine is."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 1e-3
+        return self.t
+
+    def sleep(self, seconds):
+        pass
+
+
+def test_node_app_phy_n_decodes_mixed_mcs(capsys, monkeypatch):
+    """--phy n: two rings, mixed MCS 8-15 traffic with the gap at the
+    node's hop, every frame decoded and ACKed."""
+    monkeypatch.setattr(tapp, "time", _PassClock())
+    tapp.main(["--phy", "n", "--synthetic", "16", "--mixed", "--device",
+               "cpu", "--seconds", "1.5", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert "frame_ok           16" in out, out
+    assert "16 frames, 16 acks" in out, out
 
 
 def test_node_soak_tool_runs(capsys):

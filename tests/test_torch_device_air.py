@@ -9,8 +9,10 @@ air carry agrees within 1e-6 (one fp32 add per sample, or a few where
 multipath descriptors overlap and the sum is taken in another order),
 and the initial carry, drawn with numpy in both, bit for bit.  The noisy
 air is checked on its own: continuity across rounds, quiet empty air,
-on-device TX staging and multipath taps.  Sizes are small (4 windows of
-4096 samples), as in tests/test_device_air.py.
+on-device TX staging and multipath taps.  phy "n" (two antennas, the 2x2
+mixed-MCS receiver per window) is held to the JAX air the same way, on
+the scenario of tests/test_device_air.py.  Sizes are small (4 or 8
+windows of 4096 samples), as in tests/test_device_air.py.
 """
 
 import numpy as np
@@ -228,8 +230,14 @@ def test_unported_phys_and_bad_arguments_raise(frames):
     _, waves = frames
     with pytest.raises(NotImplementedError, match="item 9"):
         _port(waves, phy="b")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # phy "n" carries two antennas: one-chain waves are refused, on-card
+    # TX staging stays the OFDM path
+    with pytest.raises(ValueError, match="chains"):
         _port(waves, phy="n")
+    ht = _port([np.stack([waves[0], waves[0]])], phy="n")
+    assert ht.n_ant == 2 and ht.n_frames == 1
+    with pytest.raises(ValueError, match="phy 'a'"):
+        ht.stage_tx([0], np.zeros((1, 40), np.uint8), 54)
     with pytest.raises(ValueError, match="unknown phy"):
         _port(waves, phy="g")
     air = _port(waves)
@@ -294,3 +302,79 @@ def test_batchmac_frames_equal_jax():
     t.rx_seqs.update({0, 1, 3, 70})
     j.rx_seqs.update({0, 1, 3, 70})
     assert t.block_ack_psdu() == j.block_ack_psdu()
+
+
+# ---- phy "n": the two-antenna air -------------------------------------------
+
+HT_KW = dict(window=4096, batch=8, overlap=2048, slots=8, max_psdu=128,
+             hdr_bytes=64, phy="n")
+HT_EXACT = ["ok", "length", "lts1"]
+
+
+@pytest.fixture(scope="module")
+def ht_frames():
+    from sora_tpu.golden import dot11n_np as gn
+
+    psdus = [jfr.build_data_frame(bytes([i]) * 60, seq=i) for i in range(2)]
+    return psdus, [np.asarray(gn.modulate(p, 11)) for p in psdus]
+
+
+def test_ht_phy_noise_free_rounds_match_jax(ht_frames):
+    """The scenario of tests/test_device_air.py (two MCS 11 2x2 frames,
+    gaps longer than the hop) on noise-free air, over two rounds with a
+    frame straddling the boundary: both airs decode every frame with equal
+    flags, lengths, positions and headers."""
+    psdus, waves = ht_frames
+    span = max(w.shape[1] for w in waves)
+    ta = tda.DeviceAir(waves, device="cpu", noise_rms=0.0, **HT_KW)
+    ja = jda.DeviceAir(waves, noise_rms=0.0, **HT_KW)
+    assert span <= ta.overlap and ta.n_ant == ja.n_ant == 2
+    assert (ta.L, ta.carry_len, ta.advance) == (ja.L, ja.carry_len,
+                                                ja.advance)
+    offs = [300, 300 + span + 2100]      # gaps > hop (2048)
+    rounds = [[(i, o, 1.0) for i, o in enumerate(offs)]
+              + [(1, ta.advance - span + 500, 1.0)], [(0, 4000, 1.0)]]
+    for r, tx in enumerate(rounds):
+        to, tb = ta.step(tx)
+        jo, jb = ja.step(tx)
+        got = fetch(to[0])
+        want = {k: np.asarray(v) for k, v in jo[0].items()}
+        assert tb == jb and sorted(got) == sorted(want)
+        for key in HT_EXACT:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        ok = want["ok"].astype(bool)
+        np.testing.assert_array_equal(got["hdr"][ok], want["hdr"][ok])
+        for key, tol in CLOSE.items():
+            np.testing.assert_allclose(got[key][ok], want[key][ok], rtol=0,
+                                       atol=tol, err_msg=key)
+        assert ta._carry.shape == (2, ta.carry_len)
+        np.testing.assert_allclose(ta._carry.numpy(), np.asarray(ja._carry),
+                                   rtol=0, atol=CARRY_ATOL)
+        if r == 0:
+            for off in offs:
+                assert _match(ta, got, tb, off, tol=1200), off
+            assert _has_header(got, psdus[0])
+            o0, b0 = got, tb
+        else:
+            assert _match(ta, got, tb, tb + 4000, tol=1200)
+            straddle = b0 + rounds[0][2][1]
+            assert (_match(ta, o0, b0, straddle, tol=1200)
+                    or _match(ta, got, tb, straddle, tol=1200))
+
+
+def test_ht_phy_noisy_air_decodes(ht_frames):
+    """The two-antenna air with receiver noise (torch.Generator), and a
+    min_mcs cap that keeps the MCS 11 frames."""
+    psdus, waves = ht_frames
+    air = tda.DeviceAir(waves, device="cpu", noise_rms=0.01, min_mcs=11,
+                        **HT_KW)
+    span = max(w.shape[1] for w in waves)
+    offs = [300, 300 + span + 2100]
+    outs, base = air.step([(i, o, 1.0) for i, o in enumerate(offs)])
+    out = fetch(outs[0])
+    for off in offs:
+        assert _match(air, out, base, off, tol=1200), off
+    assert _has_header(out, psdus[1])
+    quiet, _ = air.step([])
+    assert int(quiet[0]["ok"].sum()) == 0

@@ -24,7 +24,8 @@ import sora_tpu_torch
 from sora_tpu_torch.ops import viterbi_cuda as vc
 from sora_tpu_torch.apps import node as tapp
 from sora_tpu_torch.phy.dot11a import rx as trx
-from sora_tpu_torch.runtime import native, node, radio
+from sora_tpu_torch.phy.dot11n import rx as nrx
+from sora_tpu_torch.runtime import device_air, native, node, radio
 from sora_tpu_torch.util import xfer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,7 +61,7 @@ def test_package_imports_no_jax_nor_sora_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) == len(_modules()) >= 44
+    assert int(n) == len(_modules()) >= 48
     assert bad.strip() == "[]"
 
 
@@ -87,6 +88,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         xfer.device_complex(x)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trx.demodulate(x)
+    x2 = np.zeros((2, 1000), np.complex64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nrx.demodulate(x2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_air.DeviceAir([x2], window=512, batch=2, overlap=128,
+                             phy="n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapp.synthetic_traffic(1, b"\x02SORA1", False, 9, phy="n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         xfer.device_complex(x, "cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -101,6 +110,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # the CPU only when asked for
     assert xfer.device_complex(x, "cpu").device.type == "cpu"
     assert trx.demodulate(x, device="cpu").reason == "cs_timeout"
+    assert nrx.demodulate(x2, device="cpu").reason == "cs_timeout"
+    assert device_air.DeviceAir([x2], window=512, batch=2, overlap=128,
+                                phy="n", device="cpu").n_ant == 2
+    rings = [native.RxRing(capacity=1 << 12) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        node.StreamingNode(rings, node.NodeConfig(phy="n", max_psdu=64,
+                                                  batch=1))
+    assert node.StreamingNode(rings, node.NodeConfig(
+        phy="n", max_psdu=64, batch=1), device="cpu").device.type == "cpu"
+    for r in rings:
+        r.close()
     assert node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1),
                               device="cpu").device.type == "cpu"
     ring.close()

@@ -1,10 +1,11 @@
-"""The port's live streaming node (sora_tpu_torch.runtime.node, phy "a",
-on the CPU) against the JAX package's (sora_tpu.runtime.node).
+"""The port's live streaming node (sora_tpu_torch.runtime.node, phy "a" and
+"n", on the CPU) against the JAX package's (sora_tpu.runtime.node).
 
-The same ring samples (traffic from sora_tpu.golden.dot11a_np) go into a
-JAX node and a port node with the same NodeConfig; after both drain, the
-outcome counts (frame_ok, dup, cs_timeout, crc_fail, acks_tx, ...) and
-the delivered payloads must be equal.  Timing-dependent MAC state (when a
+The same ring samples (traffic from sora_tpu.golden.dot11a_np, and for
+11n from dot11n_np on two rings, the scenarios of tests/test_node.py) go
+into a JAX node and a port node with the same NodeConfig; after both
+drain, the outcome counts (frame_ok, dup, cs_timeout, crc_fail, acks_tx,
+...) and the delivered payloads must be equal.  Timing-dependent MAC state (when a
 pending detect is ready, backoff draws, retries) is not compared: the
 two-node conversations assert what tests/test_node.py asserts.  The
 port's ACK waveforms come from its own TX: they must equal the golden
@@ -152,14 +153,20 @@ def test_frame_span_equals_jax():
 
 @pytest.mark.parametrize("phy", ["b", "n"])
 def test_phy_b_and_n_raise_not_implemented(phy):
+    """phy "b" is not ported (NotImplementedError naming item 9); phy "n"
+    is, and on one ring raises the JAX package's ValueError (it needs two
+    rings, node.py:270 and :404)."""
     ring = tnative.RxRing(capacity=1 << 16)
-    item = {"b": "item 9", "n": "item 8"}[phy]
-    with pytest.raises(NotImplementedError, match=item):
+    err, match = {"b": (NotImplementedError, "item 9"),
+                  "n": (ValueError, "two RX rings")}[phy]
+    with pytest.raises(err, match=match):
         tnode.StreamingNode(ring, tnode.NodeConfig(
             phy=phy, input_rate="11m" if phy == "b" else "20m"),
             device="cpu")
+    with pytest.raises(ValueError):
+        jnode.StreamingNode(ring, jnode.NodeConfig(phy="n"))
     node = tnode.StreamingNode(ring, tnode.NodeConfig(**BASE), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(err, match=match):
         node.reconfigure(phy=phy)
     with pytest.raises(ValueError):
         node.reconfigure(window=1234)
@@ -291,7 +298,159 @@ def test_fixed_rate_reconfigure_equal_jax(rng):
     assert t.stats.frame_ok == 4
 
 
-# -- ACK waveforms -------------------------------------------------------------
+# -- 11n: two rings (the scenarios of tests/test_node.py) ---------------------
+
+N_BASE = dict(phy="n", window=4096, batch=2, overlap=2816, min_rate_mbps=9,
+              max_psdu=256, addr=ADDR)
+
+
+def _both_n(cfg, act):
+    """A JAX node and a port node, each on its own pair of rings; ``act``
+    (node, rings) writes the same samples into both and drains."""
+    nodes = []
+    for native, mod, kw in ((jnative, jnode, {}),
+                            (tnative, tnode, {"device": "cpu"})):
+        rings = [native.RxRing(capacity=1 << 20) for _ in range(2)]
+        node = mod.StreamingNode(rings, mod.NodeConfig(**cfg),
+                                 tx_sink=mod.TxSink(), **kw)
+        act(node, rings)
+        for r in rings:
+            r.close()
+        nodes.append(node)
+    return nodes
+
+
+def _write_n(rings, ys, rng, gap=900, tail=2700, noise=0.01):
+    """Frames ys (each (2, n): both antennas) separated by gaps, plus
+    noise, into the two rings."""
+    for a, ring in enumerate(rings):
+        pieces = []
+        for y in ys:
+            pieces += [np.zeros(gap, np.complex64), y[a].astype(np.complex64)]
+        pieces.append(np.zeros(tail, np.complex64))
+        x = np.concatenate(pieces)
+        x += (rng.normal(size=len(x)) + 1j * rng.normal(size=len(x))
+              ).astype(np.complex64) * noise
+        ring.write(x)
+
+
+def _ht_psdus(rng, n, seq0=0, nbytes=70):
+    return [append_fcs(MacHeader(addr1=ADDR, addr2=PEER, addr3=ADDR,
+                                 seq_ctrl=(seq0 + i) << 4).pack()
+                       + bytes(rng.integers(0, 256, nbytes, dtype=np.uint8)))
+            for i in range(n)]
+
+
+def _chan(rng, cols):
+    while True:
+        h = (rng.normal(size=(2, cols)) + 1j * rng.normal(size=(2, cols))
+             ) / np.sqrt(2.0)
+        if (abs(np.linalg.det(h)) > 0.3 if cols == 2
+                else np.abs(h).min() > 0.25):
+            return h
+
+
+def test_11n_mimo_two_rings_equal_jax():
+    """Mixed-MCS 2x2 frames on two rings (auto dispatch over both stream
+    classes), legacy-OFDM ACKs (tests/test_node.py:225)."""
+    from sora_tpu.golden import dot11n_np as gn
+
+    rng = np.random.default_rng(31)
+    psdus = _ht_psdus(rng, 3, nbytes=80)
+    ys = [gn.modulate(p, m) for p, m in zip(psdus, (8, 11, 15))]
+    j, t = _both_n(N_BASE, lambda node, rings: (
+        _write_n(rings, ys, np.random.default_rng(32), gap=800,
+                 noise=0.005), _drain(node)))
+    _assert_same(j, t)
+    assert t.stats.frame_ok == t.stats.acks_tx == 3
+    assert [p for _, p in t.rx_payloads] == [p[24:-4] for p in psdus]
+
+
+def test_11n_single_stream_mcs_equal_jax():
+    """A fixed single-stream MCS: one TX chain through a random 2x1
+    channel, MRC decode (tests/test_node.py:657)."""
+    from sora_tpu.golden import dot11n_np as gn
+
+    rng = np.random.default_rng(33)
+    h = _chan(rng, 1)
+    psdus = _ht_psdus(rng, 3)
+    ys = [h @ gn.modulate(p, 4) for p in psdus]
+    j, t = _both_n(dict(N_BASE, mcs=4), lambda node, rings: (
+        _write_n(rings, ys, np.random.default_rng(34)), _drain(node)))
+    _assert_same(j, t)
+    assert t.stats.frame_ok == 3
+    assert [p for _, p in t.rx_payloads] == [p[24:-4] for p in psdus]
+
+
+def test_11n_auto_mixed_stream_classes_equal_jax():
+    """One batch carrying a 2-stream (MCS 9) and a single-stream (MCS 3)
+    frame: both auto programs run and the per-row winner is the one whose
+    HT-SIG and FCS closed (tests/test_node.py:697)."""
+    from sora_tpu.golden import dot11n_np as gn
+
+    rng = np.random.default_rng(35)
+    psdus = _ht_psdus(rng, 2)
+    ys = [_chan(rng, 2) @ gn.modulate(psdus[0], 9),
+          _chan(rng, 1) @ gn.modulate(psdus[1], 3)]
+    j, t = _both_n(N_BASE, lambda node, rings: (
+        _write_n(rings, ys, np.random.default_rng(36)), _drain(node)))
+    _assert_same(j, t)
+    assert t.stats.frame_ok == 2
+    assert [p for _, p in t.rx_payloads] == [p[24:-4] for p in psdus]
+
+
+def test_11n_reconfigure_across_stream_classes_equal_jax():
+    """A live reconfigure from a 2-stream MCS to a single-stream MCS swaps
+    in the single-stream program from the table (tests/test_node.py:744)."""
+    from sora_tpu.golden import dot11n_np as gn
+
+    rng = np.random.default_rng(37)
+    H2, h1 = _chan(rng, 2), np.array([[0.9 + 0.2j], [0.4 - 0.7j]])
+    first, second = _ht_psdus(rng, 2), _ht_psdus(rng, 2, seq0=4)
+
+    def act(node, rings):
+        w = np.random.default_rng(38)
+        _write_n(rings, [H2 @ gn.modulate(p, 9) for p in first], w)
+        _drain(node)
+        assert node.stats.frame_ok == 2
+        node.reconfigure(mcs=3)
+        _write_n(rings, [h1 @ gn.modulate(p, 3) for p in second], w)
+        _drain(node)
+        before = dict(node._prog_table)
+        node.reconfigure(mcs=9)
+        assert dict(node._prog_table) == before
+
+    j, t = _both_n(dict(N_BASE, mcs=9), act)
+    _assert_same(j, t)
+    assert t.stats.frame_ok == 4
+    assert [p for _, p in t.rx_payloads] == [p[24:-4]
+                                             for p in first + second]
+
+
+def test_11n_carry_path_equals_native_feed():
+    """The Python carry path (the flush's, or a ring without the windowed
+    read) stacks the two antennas as the native read does."""
+    from sora_tpu.golden import dot11n_np as gn
+
+    rng = np.random.default_rng(39)
+    psdus = _ht_psdus(rng, 3)
+    ys = [_chan(rng, 2) @ gn.modulate(p, 12) for p in psdus]
+    nodes = []
+    for native_feed in (True, False):
+        rings = [tnative.RxRing(capacity=1 << 20) for _ in range(2)]
+        node = tnode.StreamingNode(rings, tnode.NodeConfig(**N_BASE),
+                                   tx_sink=tnode.TxSink(), device="cpu")
+        node._native_feed = native_feed
+        _write_n(rings, ys, np.random.default_rng(40))
+        _drain(node)
+        for r in rings:
+            r.close()
+        nodes.append(node)
+    assert nodes[0].stats.frame_ok == nodes[1].stats.frame_ok == 3
+    assert nodes[0].rx_payloads == nodes[1].rx_payloads
+
+
+# -- ACK waveforms ------------------------------------------------------------
 
 
 @pytest.mark.parametrize("ir", ["20m", "40m"])
