@@ -86,12 +86,35 @@ Phases (any failure raises and the script exits nonzero):
    stream classes' pipelines), two steps without an implicit sync, the
    400 frames written once and decoded (frame_ok >= 98%, crc_fail <= 2%,
    4 launches per decoded batch);
-17. a JSON line of the kernels, the card line, and as the last line
+17. the 11b TX (``phy/dot11b/tx.py``): ``modulate`` on the card and on the
+   CPU at 1, 2, 5.5 and 11 Mbps long and 2, 5.5 and 11 Mbps short (16
+   PSDUs of 1000 bytes each), equal within 1e-5; the card's waveforms
+   decode through the card's ``rx_pipeline`` at their rate and through
+   ``rx_pipeline_auto``;
+18. bench.py's 11b row (bench.py:269-291, built by ``tools/bench.py``):
+   ``rx_pipeline_auto(x, max_psdu=1024)`` on 128 streams of one 1000-byte
+   11 Mbps CCK frame (10512 chips): ok 128/128, the PSDUs FCS-valid, the
+   first 8 rows equal to the CPU run; ``rx_pipeline(x, 11, ...)`` and the
+   short-preamble batch at 128/128; timings (median of 5 windows of 20),
+   latency, stages and the device's share;
+19. the 11b chip front end: the same row pulse shaped to 44 Msps, and
+   resampled to 40 Msps, through ``chip_frontend_44m`` / ``_40m`` and the
+   receiver: 128/128 each, the first 4 rows equal to the CPU run;
+20. the 11b soak air (``tools/realtime_soak.py --phy b``: 512 windows of
+   8192 chips, 64 cached 278-byte 11 Mbps frames): one round without a
+   host sync, its device time, then about 10 s of air with every frame
+   position-matched;
+21. the 11b node (``apps/node.py --phy b --synthetic 400 --mixed --batch
+   64``, the gap at the node's hop): one batch card against CPU, two steps
+   without an implicit sync, the 400 frames written once and decoded
+   (frame_ok >= 98%, crc_fail <= 2%, ACKs sent), the device-only ratio;
+22. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
-and read just after, and fails if the kernel was not launched.  It imports
-nothing of JAX or of the JAX package.
+and read just after, and fails if the kernel was not launched — or, for
+the 11b paths, which reach no Viterbi, if it was launched at all.  It
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -104,6 +127,8 @@ from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
+
+from sora_tpu_torch.tools.bench import card_line, cuda_ms, graph_ms
 
 ROOT = Path(__file__).resolve().parent
 CAPTURE = ROOT / "tests" / "data" / "fsample54.dmp"
@@ -126,6 +151,14 @@ HT_BATCH, HT_NOISE, HT_CPU_ROWS = 128, 0.02, 8
 HT_SOAK_SECONDS = 10.0
 HT_NODE_CFG = dict(phy="n", max_psdu=256, min_rate_mbps=8, batch=64)
 HT_NODE_FRAMES, HT_NODE_RING = 400, 1 << 22
+# the 802.11b cells: bench.py's 11b row (bench.py:269-291), the soak air
+# (tools/realtime_soak.py:72-82) and the node that apps/node.py --phy b
+# --synthetic 400 --mixed --batch 64 builds (apps/node.py:176-212)
+B11_PSDU, B11_MAX_PSDU, B11_TX_ROWS, B11_CPU_ROWS = 1000, 1024, 16, 8
+B11_SOAK_SECONDS = 10.0
+B11_NODE_CFG = dict(phy="b", max_psdu=256, min_rate_mbps=1, batch=64,
+                    input_rate="11m", sample_rate_sps=11e6)
+B11_NODE_FRAMES, B11_NODE_RING = 400, 1 << 25
 
 # The card's peaks for the kernel's bound: HBM bandwidth of one H100 SXM
 # (NVIDIA's data sheet, at the full 700 W limit), and its int32 issue rate:
@@ -139,14 +172,6 @@ BOOST_SM_HZ = 1.98e9
 ACS_OPS_PER_STEP = 64 * 3
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def max_sm_hz() -> float:
     """The card's maximum SM clock in Hz (nvidia-smi), else the published
     boost clock."""
@@ -158,36 +183,6 @@ def max_sm_hz() -> float:
         return float(out.splitlines()[0]) * 1e6
     except (IndexError, ValueError):
         return BOOST_SM_HZ
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn() over reps calls (CUDA events)."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of fn() from replays of a CUDA
-    graph of reps calls, so that the host's work per call is not timed."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    return cuda_ms(graph.replay, 3) / reps
 
 
 def profile_device(fn, reps: int):
@@ -1340,6 +1335,419 @@ def ht_node_phase(torch, dev, vc, parity, int32_ops_per_s, card) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# 802.11b (phases 17-21): no Viterbi on these paths
+# ---------------------------------------------------------------------------
+
+
+def no_launch(vc, what: str) -> int:
+    """The 11b paths reach no Viterbi: raises if the kernel was launched
+    in the path just driven; returns the count (0)."""
+    if vc.LAUNCHES != 0:
+        raise AssertionError(f"{what} launched the kernel {vc.LAUNCHES} "
+                             "times, expected 0")
+    return 0
+
+
+B11_ROW_KEYS = ("psdu", "ok", "fcs_ok", "plcp_ok", "length", "signal",
+                "length_us", "t0", "preamble", "data_chip0", "rate_mbps")
+
+
+def b11_check_rows(card: dict, cpu: dict, rows: int, what: str) -> None:
+    """The first ``rows`` rows of the card's 11b outputs equal the CPU's,
+    every field exactly."""
+    for key in cpu:
+        if not np.array_equal(cpu[key], card[key][:rows]):
+            raise AssertionError(f"{what}: card and CPU disagree on {key}")
+
+
+def b11_tx_phase(torch, dev, vc) -> dict:
+    """Phase 17: the 11b TX on the card against the CPU (rates 1, 2, 5.5,
+    11 long; 2, 5.5, 11 short; 16 PSDUs of 1000 bytes each); each card
+    waveform decodes through the card's rx_pipeline at its rate and
+    through rx_pipeline_auto, with no kernel launch."""
+    from sora_tpu_torch.mac.frame import build_data_frame
+    from sora_tpu_torch.phy.dot11b import rx as brx
+    from sora_tpu_torch.phy.dot11b import tx as btx
+    from sora_tpu_torch.util.xfer import fetch
+
+    rng = np.random.default_rng(17)
+    arr = np.stack([np.frombuffer(build_data_frame(bytes(rng.integers(
+        0, 256, B11_PSDU - 28, dtype=np.uint8)), seq=i), np.uint8)
+        for i in range(B11_TX_ROWS)])
+    rows = torch.from_numpy(arr)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    worst, classes = 0.0, 0
+    for preamble, rates in (("long", (1, 2, 5.5, 11)),
+                            ("short", (2, 5.5, 11))):
+        for rate in rates:
+            w = btx.modulate(rows.to(dev), rate, B11_PSDU, preamble=preamble)
+            err = float((w.cpu() - btx.modulate(rows, rate, B11_PSDU,
+                                                preamble=preamble)).abs()
+                        .max())
+            worst = max(worst, err)
+            if err > TX_ATOL:
+                raise AssertionError(f"11b TX {rate} Mbps {preamble}: card "
+                                     f"and CPU differ by {err}")
+            x = torch.zeros(w.shape[0], w.shape[1] + 200,
+                            dtype=torch.complex64, device=dev)
+            x[:, 60: 60 + w.shape[1]] = w
+            x += torch.randn(x.shape, dtype=torch.complex64, device=dev,
+                             generator=gen) * 0.02
+            vc.LAUNCHES = 0
+            outs = [fetch(brx.rx_pipeline(x, rate, max_psdu=B11_MAX_PSDU)),
+                    fetch(brx.rx_pipeline_auto(x, max_psdu=B11_MAX_PSDU))]
+            no_launch(vc, f"11b {rate} Mbps {preamble} decodes")
+            for out in outs:
+                if not (out["ok"].all()
+                        and (out["psdu"][:, :B11_PSDU] == arr).all()
+                        and (out["preamble"] == (preamble == "short")).all()):
+                    raise AssertionError(f"the card's 11b {rate} Mbps "
+                                         f"{preamble} waveforms do not decode")
+            classes += 1
+    print(f"btx.modulate, 1/2/5.5/11 Mbps long and 2/5.5/11 Mbps short x "
+          f"{B11_TX_ROWS} PSDUs of {B11_PSDU} bytes: card and CPU agree "
+          f"within {worst:.2e} (tolerance {TX_ATOL:g}); the card's waveforms "
+          f"decode through rx_pipeline at their rate and rx_pipeline_auto: "
+          f"ok {B11_TX_ROWS}/{B11_TX_ROWS} in each of {2 * classes} calls, "
+          "kernel launches 0", flush=True)
+    return {"max_abs_err": worst, "launches": 0}
+
+
+def b11_batch_phase(torch, dev, vc) -> dict:
+    """Phase 18: bench.py's 11b row on the card (the inputs of
+    tools/bench.py): rx_pipeline_auto and rx_pipeline at 128/128 with the
+    first rows equal to the CPU run, the short-preamble batch, timings,
+    stages and the device's share; 0 kernel launches."""
+    from sora_tpu_torch.mac.frame import check_fcs
+    from sora_tpu_torch.phy.dot11b import rx as brx
+    from sora_tpu_torch.tools.bench import b11_batch, median_ms
+    from sora_tpu_torch.util.xfer import device_complex, fetch
+
+    x, psdu = b11_batch(dev)
+    B, N = x.shape
+    xd = device_complex(x, dev)
+    want = np.frombuffer(psdu, np.uint8)
+    run = lambda: brx.rx_pipeline_auto(xd, max_psdu=B11_MAX_PSDU)
+    run()                                        # first-use tables
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    host = fetch(run())
+    launches = no_launch(vc, "rx_pipeline_auto 11b")
+    n_ok = int(host["ok"].sum())
+    print(f"rx_pipeline_auto 11b {B}x{N}: ok {n_ok}/{B}, kernel launches "
+          f"{launches}", flush=True)
+    if (n_ok != B or not (host["rate_mbps"] == 11).all()
+            or not (host["psdu"][:, :B11_PSDU] == want).all()
+            or not check_fcs(psdu)):
+        raise AssertionError("the 11b batch did not decode")
+    cpu = fetch(brx.rx_pipeline_auto(torch.from_numpy(x[:B11_CPU_ROWS]),
+                                     max_psdu=B11_MAX_PSDU))
+    b11_check_rows(host, cpu, B11_CPU_ROWS, "11b batch")
+    print(f"card and CPU agree on the first {B11_CPU_ROWS} rows (every "
+          "field)", flush=True)
+
+    vc.LAUNCHES = 0
+    fixed = fetch(brx.rx_pipeline(xd, 11, max_psdu=B11_MAX_PSDU))
+    xs, _ = b11_batch(dev, preamble="short")
+    short = fetch(brx.rx_pipeline_auto(device_complex(xs, dev),
+                                       max_psdu=B11_MAX_PSDU))
+    no_launch(vc, "rx_pipeline 11b, short preamble")
+    print(f"rx_pipeline(x, 11) 11b {B}x{N}: ok {int(fixed['ok'].sum())}/{B}; "
+          f"short preamble {B}x{xs.shape[1]}: ok {int(short['ok'].sum())}/{B}"
+          f" with preamble {int(short['preamble'].min())}", flush=True)
+    if (int(fixed["ok"].sum()) != B or int(short["ok"].sum()) != B
+            or not (short["preamble"] == 1).all()
+            or not (short["psdu"][:, :B11_PSDU] == want).all()):
+        raise AssertionError("the fixed-rate or short-preamble 11b batch "
+                             "did not decode")
+
+    ms, windows = median_ms(run)
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        fetch(run()["ok"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p90 = (float(v) for v in np.percentile(lat, [50, 90]))
+    msps = B * N / ms / 1e3
+    mbps = B * B11_PSDU * 8 / ms / 1e3
+    c = brx.barker_correlate(xd)
+    corr, t0, _ = brx.synchronize_from_corr(xd, c)
+    bits = brx._dbpsk_bits(corr)
+    desc = brx._descramble(bits)
+    plcp = brx._parse_plcp_both(corr, bits, desc)
+    dc0 = t0 + 11 * plcp["data_sym0"]
+    max_bits = 8 * B11_MAX_PSDU
+    raw = brx._decode_data(xd, c, dc0, max_bits, 11)
+    nbytes = torch.full((B,), B11_PSDU, dtype=torch.int32, device=dev)
+    stage_ms = {
+        "barker_correlate": cuda_ms(lambda: brx.barker_correlate(xd), 20),
+        "synchronize": cuda_ms(lambda: brx.synchronize_from_corr(xd, c), 20),
+        "parse_plcp_both": cuda_ms(
+            lambda: brx._parse_plcp_both(corr, bits, desc), 20),
+        **{f"decode_{r}": cuda_ms(lambda r=r: brx._decode_data(
+            xd, c, dc0, max_bits, r), 20) for r in brx.RATES},
+        "frame_tail": cuda_ms(lambda: brx._frame_tail(
+            raw, plcp["prev7"], nbytes, B11_MAX_PSDU), 20),
+    }
+    dev_ms, dev_launches, top = profile_device(run, 5)
+    idle = None if dev_ms is None else 1.0 - dev_ms / ms
+    print(f"rx_pipeline_auto 11b: {ms:.3f} ms/batch (events, median of 5 "
+          f"windows of 20; range {windows[0]:.3f}-{windows[-1]:.3f}); "
+          f"{msps:.1f} Msamples/s at 11 Msps (b11_msps), {mbps:.1f} Mbps "
+          f"decoded; latency with fetch p50 {p50:.3f} ms, p90 {p90:.3f} ms "
+          "(50 batches)", flush=True)
+    print("stages ms: " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in stage_ms.items()), flush=True)
+    if dev_ms is None:
+        print("device time: not measured (the profiler saw no device "
+              "events)", flush=True)
+    else:
+        print(f"device time: kernels {dev_ms:.3f} ms of {ms:.3f} ms per "
+              f"batch (idle share {idle:.3f}), {dev_launches:.0f} device "
+              "launches per batch; top:", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    return {"batch": [B, N], "ms": ms, "windows_ms": windows,
+            "b11_msps": msps, "decoded_mbps": mbps, "latency_p50_ms": p50,
+            "latency_p90_ms": p90, "stage_ms": stage_ms, "device_ms": dev_ms,
+            "idle_share": idle, "device_launches": dev_launches,
+            "short_batch": list(xs.shape), "launches": launches}
+
+
+def b11_frontend_phase(torch, dev, vc) -> int:
+    """Phase 19: the 11b row pulse shaped to 44 Msps (and resampled to 40)
+    through the chip front end and rx_pipeline_auto: 128/128 each, the
+    first 4 rows equal to the CPU run."""
+    from sora_tpu_torch.phy import frontend as fe
+    from sora_tpu_torch.phy.dot11b import rx as brx
+    from sora_tpu_torch.tools.bench import b11_batch
+    from sora_tpu_torch.util.xfer import device_complex, fetch
+
+    x, psdu = b11_batch(dev)
+    want = np.frombuffer(psdu, np.uint8)
+    x44 = fe.pulse_shape_11b(device_complex(x, dev))
+    x40 = fe.resample(x44, 10, 11)
+    for name, xr, front in (("44m", x44, fe.chip_frontend_44m),
+                            ("40m", x40, fe.chip_frontend_40m)):
+        decode = lambda v: brx.rx_pipeline_auto(front(v),
+                                                max_psdu=B11_MAX_PSDU)
+        torch.cuda.synchronize()
+        vc.LAUNCHES = 0
+        host = fetch(decode(xr))
+        no_launch(vc, f"11b {name} front end")
+        n_ok = int(host["ok"].sum())
+        print(f"chip_frontend_{name} + rx_pipeline_auto 11b "
+              f"{xr.shape[0]}x{xr.shape[1]}: ok {n_ok}/{xr.shape[0]}, kernel "
+              "launches 0", flush=True)
+        if n_ok != xr.shape[0] or not (host["psdu"][:, :B11_PSDU]
+                                       == want).all():
+            raise AssertionError(f"the 11b {name} batch did not decode")
+        cpu = fetch(decode(xr[:4].cpu()))
+        b11_check_rows(host, cpu, 4, f"11b {name}")
+        print(f"card and CPU agree on the first 4 rows at {name}", flush=True)
+    return 0
+
+
+def b11_soak_phase(torch, vc, card) -> dict:
+    """Phase 20: the 11b soak air (tools/realtime_soak.py --phy b): one
+    round under set_sync_debug_mode("error"), its device time, then
+    ``run_rx_soak(phy="b")`` with every frame position-matched and no
+    kernel launch."""
+    from sora_tpu_torch.tools import realtime_soak as soak
+    from sora_tpu_torch.util.xfer import fetch
+
+    air, _, span = soak.make_rx_soak_air(phy="b")
+    period = span + soak.SOAK_GAP["b"]
+    tx = [(int((off // period) % 64), int(off), 1.0)
+          for off in range(1000, air.advance, period)]
+    for _ in range(2):
+        outs, _ = air.step(tx)
+    fetch(outs[0]["ok"])
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, _ = air.step(tx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    no_launch(vc, "one 11b soak round")
+    out = fetch(outs[0])
+    print(f"11b soak round ({air.batch}x{air.window} chips, hop {air.hop}): "
+          f"no host sync inside DeviceAir.step (set_sync_debug_mode('error'))"
+          f"; {int(out['ok'].sum())} ok rows of {len(out['ok'])} for "
+          f"{len(tx)} frames sent", flush=True)
+    dev_ms, dev_launches, top = profile_device(lambda: air.step(tx), 3)
+
+    log = lambda *a: print("  11b soak:", *a, flush=True)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    res = soak.run_rx_soak(B11_SOAK_SECONDS, SOAK_DEPTH, log, phy="b")
+    torch.cuda.synchronize()
+    launches = no_launch(vc, "the 11b soak")
+    n_rounds = res["rounds"] + res["warm_rounds"]
+    wall_round_ms = res["wall_seconds"] * 1e3 / res["rounds"]
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_round_ms
+    print(f"11b soak: {res['air_seconds']} s of 11 Msps air in "
+          f"{res['wall_seconds']} s wall, real-time ratio {res['ratio']}; "
+          f"{res['msps']} Msamples/s, {res['decoded_mbps']} Mbps decoded; "
+          f"frames delivered {res['frames_delivered']}/"
+          f"{res['frames_scheduled']}; kernel launches {launches} in "
+          f"{n_rounds} rounds", flush=True)
+    if dev_ms is None:
+        print("11b soak round device time: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"11b soak round device time: {dev_ms:.3f} ms of "
+              f"{wall_round_ms:.3f} ms wall per round in the soak (idle share "
+              f"{idle:.3f}), {dev_launches:.0f} device launches per round; "
+              "top:", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    print(card, flush=True)
+    return {"result": res, "launches": launches,
+            "round": {"device_ms": dev_ms, "wall_ms": wall_round_ms,
+                      "idle_share": idle, "device_launches": dev_launches}}
+
+
+def b11_node_phase(torch, dev, vc, card) -> dict:
+    """Phase 21: the 11b node at the configuration of ``apps/node.py --phy
+    b --synthetic 400 --mixed --batch 64`` (the gap at the node's hop: the
+    DSSS receiver locks on the first burst of each window): one batch card
+    against CPU, two steps without an implicit host sync, the 400
+    mixed-rate frames written once and decoded until idle, and the
+    device-only ratio."""
+    from sora_tpu_torch.apps.node import synthetic_traffic
+    from sora_tpu_torch.mac.frame import build_ack_frame
+    from sora_tpu_torch.runtime.native import RxRing
+    from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
+    from sora_tpu_torch.util.xfer import I16_SCALE, device_quantized, fetch
+
+    cfg = NodeConfig(addr=NODE_ADDR, **B11_NODE_CFG)
+    hop = cfg.window - cfg.overlap
+    nsamp = cfg.window + hop * (cfg.batch - 1)
+    air_s = nsamp / cfg.sample_rate_sps
+    ring = RxRing(capacity=B11_NODE_RING)
+    node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=dev)
+    t0 = time.perf_counter()
+    node.warm_up()
+    warm_s = time.perf_counter() - t0
+    src = synthetic_traffic(B11_NODE_FRAMES, NODE_ADDR, mixed=True, rate=2,
+                            gap=hop, phy="b", device=dev)
+    print(f"11b node: window {cfg.window} overlap {cfg.overlap} hop {hop} "
+          f"batch {cfg.batch}, ring of {B11_NODE_RING}, {nsamp} chips = "
+          f"{air_s * 1e3:.2f} ms of air per batch, wire {cfg.wire}; warm-up "
+          f"{warm_s:.2f} s; traffic {len(src)} chips ({B11_NODE_FRAMES} "
+          f"frames of 88 bytes at 1/2/5.5/11 Mbps, gap {hop})", flush=True)
+
+    # ---- one batch, card against CPU ----------------------------------------
+    feed = RxRing(capacity=B11_NODE_RING)
+    vs = feed.alloc_vstream()
+    feed.write(_windows(node, src, 1))
+    h, _ = feed.read_windows(vs, cfg.window, hop, cfg.batch, I16_SCALE,
+                             np.int16)
+    feed.close()
+    xd = device_quantized(h, dev)
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    out = fetch(node._decode(xd))
+    no_launch(vc, "one 11b node batch")
+    cpu = fetch(node._decode(device_quantized(h[:B11_CPU_ROWS], "cpu")))
+    b11_check_rows(out, cpu, B11_CPU_ROWS, "11b node batch")
+    n_ok = int(out["ok"].sum())
+    if n_ok == 0:
+        raise AssertionError("the 11b node batch decoded nothing")
+    print(f"11b node batch {cfg.batch}x{cfg.window} (i16 wire): {n_ok} ok "
+          f"rows of {cfg.batch}, kernel launches 0; card and CPU agree on "
+          f"every field of the first {B11_CPU_ROWS} windows", flush=True)
+
+    # ---- two steps without an implicit host sync ----------------------------
+    ring.write(_windows(node, src, 3))
+    node.step()
+    node.cache.get(build_ack_frame(b"\x02PEER0"), cfg.ack_rate)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        node.step()
+        node.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    node.flush()
+    ring.close()
+    if node.stats.decoded_batches < 3 or node.stats.frame_ok == 0:
+        raise AssertionError("the checked 11b steps did not decode:\n"
+                             + node.report())
+    print("11b node step: no implicit host sync while it assembles, uploads "
+          "and issues detect and decode (set_sync_debug_mode('error'), 2 "
+          f"steps); {node.stats.frame_ok} frames in "
+          f"{node.stats.decoded_batches} batches", flush=True)
+
+    # ---- the 400 frames, written once, decoded until idle -------------------
+    ring = RxRing(capacity=B11_NODE_RING)
+    node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=dev)
+    node.warm_up()
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ring.write(src)
+    idle = 0
+    while idle < 3:
+        idle = 0 if node.step() else idle + 1
+    node.flush()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ring.close()
+    launches = no_launch(vc, "the 11b node run")
+    st, rep = node.stats, node.sw.report()
+    batches = st.decoded_batches
+    wall_batch_ms = run_s * 1e3 / max(1, batches)
+    print(f"11b node run ({B11_NODE_FRAMES} frames written once, stepped to "
+          f"idle): frame_ok {st.frame_ok}, crc_fail {st.crc_fail}, plcp_fail "
+          f"{st.plcp_fail}, dup {st.dup}, cs_timeout {st.cs_timeout}, acks "
+          f"{st.acks_tx}; decoded batches {batches}, kernel launches "
+          f"{launches}; {run_s:.2f} s wall, {wall_batch_ms:.2f} ms per batch "
+          f"of {air_s * 1e3:.2f} ms air, MacStopwatch avg ratio "
+          f"{rep.avg_ratio:.4f} (max {rep.max_ratio:.4f}; not gated)",
+          flush=True)
+    if (st.frame_ok < 0.98 * B11_NODE_FRAMES
+            or st.crc_fail > 0.02 * B11_NODE_FRAMES or st.acks_tx == 0):
+        raise AssertionError("11b node run failed:\n" + node.report())
+
+    issue = lambda: (node._detect(xd), node._decode(xd))
+    issue()
+    dev_only_ms = cuda_ms(issue, 20)
+    dev_ms, dev_launches, top = profile_device(issue, 3)
+    idle = None if dev_ms is None else 1.0 - dev_ms / wall_batch_ms
+    print(f"11b node device-only: {dev_only_ms:.3f} ms detect+decode per "
+          f"batch (events, 20 calls) over {air_s * 1e3:.2f} ms of air: ratio "
+          f"{dev_only_ms / 1e3 / air_s:.4f}", flush=True)
+    if dev_ms is None:
+        print("11b node batch device time: not measured (the profiler saw "
+              "no device events)", flush=True)
+    else:
+        print(f"11b node batch device time: {dev_ms:.3f} ms per "
+              f"detect+decode ({dev_launches:.0f} device launches); idle "
+              f"share of the run {idle:.4f}; top:", flush=True)
+        for name, t, n in top:
+            print(f"  {t:8.4f} ms {n:6.0f}x  {name[:90]}", flush=True)
+    print(card, flush=True)
+    return {"config": {"window": cfg.window, "overlap": cfg.overlap,
+                       "hop": hop, "batch": cfg.batch,
+                       "air_ms_per_batch": air_s * 1e3},
+            "warm_s": warm_s, "frames": st.frame_ok,
+            "crc_fail": st.crc_fail, "plcp_fail": st.plcp_fail,
+            "dup": st.dup, "acks_tx": st.acks_tx, "decoded_batches": batches,
+            "launches": launches, "run_s": run_s,
+            "wall_ms_per_batch": wall_batch_ms, "avg_ratio": rep.avg_ratio,
+            "max_ratio": rep.max_ratio, "device_only_ms": dev_only_ms,
+            "device_only_ratio": dev_only_ms / 1e3 / air_s,
+            "device_ms_per_batch": dev_ms,
+            "device_launches_per_batch": dev_launches, "idle_share": idle}
+
+
+
 def main() -> int:
     import torch
 
@@ -1566,6 +1974,19 @@ def main() -> int:
     paths["11n soak"] = ht_soak["launches"]
     ht_node = ht_node_phase(torch, dev, vc, parity, int32_ops_per_s, card)
     paths["11n node"] = ht_node["launches"]
+
+    # ---- 17-21. 802.11b: no Viterbi launch on any of these paths -----------
+    b11_tx = b11_tx_phase(torch, dev, vc)
+    paths["11b tx decodes"] = b11_tx.pop("launches")
+    b11 = b11_batch_phase(torch, dev, vc)
+    paths["rx_pipeline_auto 11b, rx_pipeline 11b, short preamble"] = \
+        b11.pop("launches")
+    paths["11b 44m and 40m front ends"] = b11_frontend_phase(torch, dev, vc)
+    b11_soak = b11_soak_phase(torch, vc, card)
+    paths["11b soak"] = b11_soak["launches"]
+    b11_node = b11_node_phase(torch, dev, vc, card)
+    paths["11b node"] = b11_node["launches"]
+
     ht_shapes = [
         {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
          "launches_per_call": 1},
@@ -1601,6 +2022,9 @@ def main() -> int:
                           "auto": ht_auto, "auto_1ss": ht_auto1,
                           "soak": ht_soak["result"],
                           "soak_round": ht_soak["round"], "node": ht_node},
+               "dot11b": {"tx": b11_tx, "batch": b11,
+                          "soak": b11_soak["result"],
+                          "soak_round": b11_soak["round"], "node": b11_node},
                "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{

@@ -1,5 +1,5 @@
 """Live SDR node CLI — the umxsdrbrick analogue over replay/synthetic air
-(port of ``sora_tpu.apps.node``, phy "a" and "n").
+(port of ``sora_tpu.apps.node``, phy "a", "b" and "n").
 
 Boots the native RX ring, starts a paced producer (dump replay or
 synthetic multi-frame traffic), runs the StreamingNode poll loop (batched
@@ -14,10 +14,16 @@ Synthetic 24 Mbps traffic, paced at 20 Msps, on the card::
 
     python -m sora_tpu_torch.apps.node --synthetic 400 --rate 24 --pace 20e6
 
-Synthetic mixed-MCS 2x2 HT traffic on two rings (11n mode)::
+Synthetic mixed-rate DSSS traffic at 11 Msps chips (11b mode)::
+
+    python -m sora_tpu_torch.apps.node --phy b --synthetic 400 --mixed \
+        --batch 64
+
+Synthetic mixed-MCS 2x2 HT traffic on two rings (11n mode), with the
+inter-frame gap at the node's hop::
 
     python -m sora_tpu_torch.apps.node --phy n --synthetic 400 --mixed \
-        --batch 64
+        --batch 64 --gap hop
 
 Replay a 40 Msps dump, looped::
 
@@ -36,6 +42,7 @@ import time
 import numpy as np
 
 _A_RATES = [6, 9, 12, 18, 24, 36, 48, 54]
+_B_RATES = [1, 2, 5.5, 11]
 _N_MCS = list(range(8, 16))
 
 
@@ -46,25 +53,31 @@ def _log(*a):
 def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
                       rate: float, gap: int = 900, seed: int = 7,
                       phy: str = "a", device=None) -> np.ndarray:
-    """A 20 Msps stream of n_frames 148-byte data frames addressed to
-    `addr`, separated by idle gaps, plus noise at 0.01.  phy "a": (N,),
-    rate-mixed over the 8 OFDM rates if requested; phy "n": (nss, N), one
-    row per TX chain (2 for MCS 8-15, mixed over them if requested), with
-    the gap at least 3200 (a node's hop must stay within the gap).  The
-    payloads and the noise are drawn from one numpy generator as in the
-    JAX package; the frames are modulated by the port's TX on ``device``
-    (default cuda), one batched call per rate."""
+    """A stream of n_frames data frames addressed to `addr`, separated by
+    idle gaps, plus noise at 0.01.  phy "a": (N,) at 20 Msps, 148-byte
+    frames, rate-mixed over the 8 OFDM rates if requested; phy "b": (N,)
+    at 11 Msps chips, 88-byte frames, mixed over 1/2/5.5/11 Mbps if
+    requested, with the gap at least 2400; phy "n": (nss, N) at 20 Msps,
+    one row per TX chain (2 for MCS 8-15, mixed over them if requested),
+    148-byte frames, with the gap at least 3200.  The payloads and the
+    noise are drawn from one numpy generator as in the JAX package; the
+    frames are modulated by the port's TX on ``device`` (default cuda),
+    one batched call per rate."""
     from sora_tpu_torch.mac.frame import MacHeader, append_fcs
     from sora_tpu_torch.phy.dot11a import tx as atx
+    from sora_tpu_torch.phy.dot11b import tx as btx
     from sora_tpu_torch.phy.dot11n import tx as ntx
-    from sora_tpu_torch.runtime.device_air import NOT_PORTED
     from sora_tpu_torch.util.xfer import fetch, resolve_device, upload
 
-    if phy in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[phy])
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    if phy == "n":
+    nbytes = 120
+    if phy == "b":
+        rates = _B_RATES if mixed else [rate]
+        gap = max(gap, 2400)
+        modulate = btx.modulate
+        nbytes = 60
+    elif phy == "n":
         rates = _N_MCS if mixed else [int(rate)]
         gap = max(gap, 3200)
         modulate = ntx.modulate
@@ -75,7 +88,7 @@ def synthetic_traffic(n_frames: int, addr: bytes, mixed: bool,
     for i in range(n_frames):
         hdr = MacHeader(addr1=addr, addr2=b"\x02PEER0", addr3=addr,
                         seq_ctrl=(i & 0xFFF) << 4)
-        payload = bytes(rng.integers(0, 256, 120, dtype=np.uint8))
+        payload = bytes(rng.integers(0, 256, nbytes, dtype=np.uint8))
         psdus.append(np.frombuffer(append_fcs(hdr.pack() + payload),
                                    np.uint8))
     waves = [None] * n_frames
@@ -126,31 +139,37 @@ def _process_kb(node, phy: str = "a") -> bool:
         elif ch == "0":
             node.reconfigure(rate_mbps=None, mcs=None, warm=True)
             _log("rate=auto")
-        elif ch.isdigit() and phy == "n":
-            node.reconfigure(mcs=8 + int(ch) - 1, warm=True)
-            _log(f"mcs={8 + int(ch) - 1}")
-        elif ch.isdigit() and int(ch) - 1 < len(_A_RATES):
-            node.reconfigure(rate_mbps=_A_RATES[int(ch) - 1], warm=True)
-            _log(f"rate={_A_RATES[int(ch) - 1]} Mbps")
+        elif ch.isdigit():
+            i = int(ch) - 1
+            rates = _B_RATES if phy == "b" else _A_RATES
+            if phy == "n":
+                node.reconfigure(mcs=8 + i, warm=True)
+                _log(f"mcs={8 + i}")
+            elif i < len(rates):
+                node.reconfigure(rate_mbps=rates[i], warm=True)
+                _log(f"rate={rates[i]} Mbps")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sora_tpu_torch.apps.node",
                                 description=__doc__.split("\n")[0])
     p.add_argument("--phy", default="a", choices=("a", "b", "n"),
-                   help="PHY mode (umxsdrbrick -b / -n flags; b is not "
-                        "ported)")
+                   help="PHY mode (umxsdrbrick -b / -n flags)")
     p.add_argument("--dump", help="replay a Sora dump file into the ring")
     p.add_argument("--loop", action="store_true",
                    help="loop the replay source")
     p.add_argument("--synthetic", type=int, metavar="N", default=0,
                    help="generate N synthetic data frames instead")
     p.add_argument("--mixed", action="store_true",
-                   help="synthetic traffic cycles all 8 rates (MCS 8-15 "
-                        "with --phy n)")
+                   help="synthetic traffic cycles all rates (the 4 DSSS "
+                        "rates with --phy b, MCS 8-15 with --phy n)")
     p.add_argument("--rate", type=float, default=0.0,
-                   help="synthetic traffic rate: Mbps (11a) or MCS index "
-                        "(11n); 0 = per-phy default")
+                   help="synthetic traffic rate: Mbps (11a/11b) or MCS "
+                        "index (11n); 0 = per-phy default")
+    p.add_argument("--gap", default="900", metavar="N|hop",
+                   help="synthetic inter-frame gap in samples (floored at "
+                        "2400 for --phy b and 3200 for --phy n, as the JAX "
+                        "app does), or 'hop' for the node's hop")
     p.add_argument("--pace", type=float, default=0.0,
                    help="producer pacing in samples/s (0 = unpaced); "
                         "dump replay defaults to its design rate")
@@ -192,10 +211,12 @@ def main(argv=None) -> int:
 
     addr = b"\x02SORA1"
     rate = args.rate or {"a": 6, "b": 2, "n": 8}[args.phy]
+    if args.gap != "hop" and not args.gap.isdigit():
+        p.error(f"--gap must be a sample count or 'hop', got {args.gap!r}")
     if args.dump:
         if args.phy != "a":
             p.error("--dump replay is the 11a capture path; use "
-                    "--synthetic with --phy n")
+                    "--synthetic with --phy b/n")
         src = parse_dump(args.dump)
         input_rate = "40m" if args.msps == 40 else "20m"
         rate_sps = args.pace or float(args.msps) * 1e6
@@ -205,7 +226,7 @@ def main(argv=None) -> int:
     else:
         if not args.synthetic:
             p.error("need --dump or --synthetic N")
-        input_rate = "20m"
+        input_rate = "11m" if args.phy == "b" else "20m"
         rate_sps = args.pace
         batch = args.batch or 8
         max_psdu = 256
@@ -216,17 +237,19 @@ def main(argv=None) -> int:
 
     # window/overlap auto-size from (max_psdu, min_rate) inside
     # NodeConfig.__post_init__
+    default_sps = 11e6 if args.phy == "b" else 20e6
     cfg = load_config(NodeConfig, path=args.config, overrides=dict(
         phy=args.phy, window=args.window, batch=batch, overlap=0,
         input_rate=input_rate, max_psdu=max_psdu, addr=addr,
         min_rate_mbps=min_rate, wire=args.wire,
         mcs=(None if args.mixed or args.phy != "n" else int(rate)),
-        sample_rate_sps=rate_sps or 20e6))
+        sample_rate_sps=rate_sps or default_sps))
     if not args.dump:
-        # the HT node locks one preamble per window, so the hop must stay
-        # within the inter-frame gap (every frame then has a window that
-        # starts in the gap before it)
-        gap = cfg.window - cfg.overlap if args.phy == "n" else 900
+        # the DSSS and HT nodes lock one onset per window: a frame decodes
+        # when some window starts in the gap before it, which a gap of at
+        # least the hop guarantees (--gap hop)
+        gap = (cfg.window - cfg.overlap if args.gap == "hop"
+               else int(args.gap))
         src = synthetic_traffic(args.synthetic, addr, args.mixed, rate,
                                 gap=gap, phy=args.phy, device=args.device)
     if (args.rx_gain is not None or args.freq_offset
@@ -235,7 +258,8 @@ def main(argv=None) -> int:
         # the SoraURadioSetRxGain/SetCentralFreq path over software
         from sora_tpu_torch.runtime.radio import SoftRadio
         radio = SoftRadio(device=args.device)
-        radio.attach_air(src, freq_hz=2.422e9, rate_sps=rate_sps or 20e6)
+        radio.attach_air(src, freq_hz=2.422e9,
+                         rate_sps=rate_sps or default_sps)
         if args.rx_gain is not None:
             radio.set_rx_gain(args.rx_gain)
         radio.set_central_freq(2.422e9 + args.tune_error)
@@ -253,7 +277,7 @@ def main(argv=None) -> int:
                              tx_sink=TxSink(), device=args.device)
         _log(f"node: phy={args.phy} window={cfg.window} batch={cfg.batch} "
              f"overlap={cfg.overlap} front_end={input_rate} "
-             f"pace={(rate_sps or 20e6) / 1e6:.1f} Msps "
+             f"pace={(rate_sps or default_sps) / 1e6:.1f} Msps "
              f"src={src.shape[-1]} samples loop={bool(args.loop or args.dump)}"
              f" device={node.device}")
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 """Device-resident software air: the real-time path of the live node
-(port of ``sora_tpu.runtime.device_air``, phy "a" and "n").
+(port of ``sora_tpu.runtime.device_air``, phy "a", "b" and "n").
 
 The reference's defining claim is sustained real-time 802.11 processing
 (processing cost / signal duration < 1.0, kernel/bb/demod11/
@@ -15,10 +15,12 @@ reference's RCB DMA ring keeps samples off the PCIe bus:
   ``rx_pipeline_auto`` on them.  Only decoded headers and per-candidate
   metadata come back;
 * an **air carry** (window overlap + one cache entry's length) threads
-  rounds on the card, so the air is a gapless 20 Msps stream: frames
+  rounds on the card, so the air is a gapless sample stream: frames
   straddling a round boundary decode in the next round's first window;
 * with ``n_receivers=2`` the same air is decoded through two independent
   receiver noise draws (two nodes sharing a channel);
+* phy "b" is an 11 Msps chip stream: each window runs the mixed-rate
+  DSSS receiver, which locks on the window's first energy burst;
 * phy "n" carries two antennas: the cache holds (2, L) per-chain pairs,
   the carry is (2, carry_len) and each window runs the 2x2 mixed-MCS
   receiver.
@@ -44,32 +46,31 @@ import torch
 from sora_tpu_torch.mac import frame as fr
 from sora_tpu_torch.phy.dot11a import rx as arx
 from sora_tpu_torch.phy.dot11a import tx as atx
+from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11n import rx as nrx
 from sora_tpu_torch.util.xfer import device_complex, resolve_device, upload
-
-NOT_PORTED = {
-    "b": "phy='b' (the DSSS chain) is not ported: ROADMAP queue 1 item 9",
-}
 
 
 class DeviceAir:
     """Continuous device-resident air + one air -> RX pass per round.
 
     waves: list of host complex waveforms (the TX cache; entry i is
-    referenced by descriptors) — 1-D for phy "a", (2, n) per-chain pairs
-    for phy "n" (the air carries an antenna axis).  All waves are
-    zero-padded to a common length L (a multiple of 256) on the device;
-    complex amplitude scaling happens per transmission descriptor (a
-    multipath tap is just an extra delayed descriptor).
+    referenced by descriptors) — 1-D for phy "a" and "b", (2, n)
+    per-chain pairs for phy "n" (the air carries an antenna axis).  All
+    waves are zero-padded to a common length L (a multiple of 256) on the
+    device; complex amplitude scaling happens per transmission descriptor
+    (a multipath tap is just an extra delayed descriptor).
 
     phy selects the per-window decoder: "a" = the 11a ``rx_pipeline_auto``
-    with multi-onset candidates and the ``min_rate_mbps`` cap; "n" = the
-    2x2 HT ``rx_pipeline_auto`` (first-plateau lock, so ``n_frames`` is 1,
-    with the ``min_mcs`` cap).  The single-candidate chain carries a
-    geometry contract: the scheduler keeps hop <= inter-frame gap (every
-    frame has a window starting in its preceding gap) and overlap >= frame
-    span (containment).  Runs on ``device`` (default cuda; raises without
-    CUDA unless ``device="cpu"``).
+    with multi-onset candidates and the ``min_rate_mbps`` cap; "b" = the
+    11 Msps DSSS ``rx_pipeline_auto`` (first-burst lock); "n" = the 2x2
+    HT ``rx_pipeline_auto`` (first-plateau lock, with the ``min_mcs``
+    cap).  "b" and "n" lock one onset per window, so ``n_frames`` is 1,
+    and these single-candidate chains carry a geometry contract: the
+    scheduler keeps hop <= inter-frame gap (every frame has a window
+    starting in its preceding gap) and overlap >= frame span
+    (containment).  Runs on ``device`` (default cuda; raises without CUDA
+    unless ``device="cpu"``).
     """
 
     def __init__(self, waves, *, window: int = 32768, batch: int = 64,
@@ -80,17 +81,15 @@ class DeviceAir:
                  min_rate_mbps: int = 6, min_mcs: int = 8,
                  pad_len: int = 0, n_entries: int = 0, phy: str = "a",
                  seed: int = 0, device=None):
-        if phy in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[phy])
-        if phy not in ("a", "n"):
+        if phy not in ("a", "b", "n"):
             raise ValueError(f"unknown phy {phy!r}")
         if not 0 <= overlap < window:
             raise ValueError(f"overlap {overlap} must be in [0, {window})")
         self.device = dev = resolve_device(device)
         self.phy = phy
         self.n_ant = A = 2 if phy == "n" else 1
-        if phy == "n":
-            n_frames = 1      # the HT chain locks one onset per window;
+        if phy in ("b", "n"):
+            n_frames = 1      # these chains lock one onset per window;
             #                   the overlap covers the rest
         self.window, self.batch, self.overlap = window, batch, overlap
         self.hop = window - overlap
@@ -203,7 +202,10 @@ class DeviceAir:
                          generator=self._gen, device=self.device)
         xw = wins.transpose(0, 1) + torch.complex(wn[0], wn[1]) * (
             0.5 * sigma)
-        if self.phy == "n":
+        if self.phy == "b":
+            out = brx.rx_pipeline_auto(xw[:, 0], max_psdu=self.max_psdu)
+            out["lts1"] = out["t0"]           # the window-relative anchor
+        elif self.phy == "n":
             out = nrx.rx_pipeline_auto(xw, max_psdu=self.max_psdu,
                                        min_mcs=self.min_mcs)
         else:

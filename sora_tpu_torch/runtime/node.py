@@ -1,5 +1,6 @@
 """Live streaming SDR node: RX ring(s) -> batched device decode -> soft MAC
--> pre-staged TX (port of ``sora_tpu.runtime.node``, phy "a" and "n").
+-> pre-staged TX (port of ``sora_tpu.runtime.node``, phy "a", "b" and
+"n").
 
 This is the umxsdrbrick analogue — the reference's defining capability: a
 *running radio* (kernel/bb/umxsdrbrick/main.cpp).  `Dot11_main` boots the
@@ -16,28 +17,30 @@ double-buffered device feed:
   reader assembles and quantizes a batch of windows in one pass, only the
   int16/int8 wire crosses to the card (``util.xfer.device_quantized``),
   and the phy's auto pipeline decodes the batch (the whole RX graph: one
-  launch of the Viterbi kernel for 11a; for 11n two per pipeline, HT-SIG
-  and data, and with no fixed MCS both stream classes' pipelines run,
-  the per-row winner taken by which closed its FCS).
+  launch of the Viterbi kernel for 11a; none for 11b, whose chips run
+  through the DSSS receiver, after the chip front end for 40/44 Msps
+  input; for 11n two per pipeline, HT-SIG and data, and with no fixed MCS
+  both stream classes' pipelines run, the per-row winner taken by which
+  closed its FCS).
 * Every device result is fetched through a ``util.xfer.Pending`` started
   when the work is issued: the node issues batch k+1's carrier-sense pass
   before it waits for batch k's, and a wait covers only the copies of the
   result it needs — not the work queued after them (a blocking ``.cpu()``
   would wait for the whole stream and undo the double buffer).
-* A cheap carrier-sense pass (``detect_only``, on the antenna sum for
-  11n) gates the full decode — TCCA11a's no-energy early exit
+* A cheap carrier-sense pass (``detect_only``: the STS plateau for 11a,
+  the Barker fold for 11b, on the antenna sum for 11n) gates the full
+  decode — TCCA11a's no-energy early exit
   (cca.hpp:165-230): idle air costs the sync front end only, never the
   Viterbi.
 * Decoded data frames are ACKed from a precomputed-waveform SignalCache
   (sub-SIFS fire, _signal_cache.h:1-60; the waveforms come from the
-  port's 11a TX on the node's device — 11n control responses go out in
-  legacy OFDM) into a TX sink that can loop back into ring(s) (the
+  port's 11a or 11b TX on the node's device — 11n control responses go
+  out in legacy OFDM) into a TX sink that can loop back into ring(s) (the
   software air) or just stage waveforms.
 
 The host MAC logic (windows, AGC, dedup, the TX FSM, mgmt, beacons,
 reconfigure, skip_backlog, flush) is the JAX package's, copied.
-:class:`NodeConfig` sizes all three PHYs as the JAX package does; a node
-with phy "b" raises NotImplementedError (ROADMAP queue 1 item 9).  The
+:class:`NodeConfig` sizes all three PHYs as the JAX package does.  The
 node runs on ``device`` (default cuda; raises without CUDA unless
 ``device="cpu"``).
 
@@ -64,9 +67,9 @@ from sora_tpu_torch.phy import dot11n_common as NC
 from sora_tpu_torch.phy import frontend as fe
 from sora_tpu_torch.phy.dot11a import rx as arx
 from sora_tpu_torch.phy.dot11a import tx as atx
+from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11b import tx as btx
 from sora_tpu_torch.phy.dot11n import rx as nrx
-from sora_tpu_torch.runtime.device_air import NOT_PORTED
 from sora_tpu_torch.util.stopwatch import MacStopwatch
 from sora_tpu_torch.util.xfer import (I8_SCALE, I16_SCALE, Pending,
                                       device_complex8, device_complex16,
@@ -271,10 +274,10 @@ class TxSink:
 class StreamingNode:
     """One receive chain bound to RX ring vstream(s).
 
-    ``ring`` is a single ``RxRing`` for 11a, or a [ring0, ring1] pair for
-    the 2-antenna 11n mode (TRxMIMOStream, rxstream.hpp:162).  The node's
-    device work — the carrier-sense pass, the decode, the ACK modulation —
-    runs on ``device`` (default cuda)."""
+    ``ring`` is a single ``RxRing`` for 11a and 11b, or a [ring0, ring1]
+    pair for the 2-antenna 11n mode (TRxMIMOStream, rxstream.hpp:162).  The
+    node's device work — the carrier-sense pass, the decode, the ACK
+    modulation — runs on ``device`` (default cuda)."""
 
     def __init__(self, ring, cfg: NodeConfig | None = None,
                  tx_sink: TxSink | None = None,
@@ -282,8 +285,6 @@ class StreamingNode:
                  on_payload: Callable | None = None,
                  on_frame: Callable | None = None, device=None):
         self.cfg = cfg or NodeConfig()
-        if self.cfg.phy in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[self.cfg.phy])
         self.rings = (list(ring) if isinstance(ring, (list, tuple))
                       else [ring])
         if self.cfg.phy == "n" and len(self.rings) != 2:
@@ -350,17 +351,25 @@ class StreamingNode:
     # -- modulation (ACK / data waveforms at the ring's input rate) -----------
 
     def _default_modulate(self) -> Callable:
-        dev, ir = self.device, self.cfg.input_rate
+        dev, ir, dsss = self.device, self.cfg.input_rate, self.cfg.phy == "b"
 
         def modulate(psdu, rate):
             # the port's TX on the node's device, raised to the ring's
-            # input rate; one host fetch per SignalCache miss
+            # input rate; one host fetch per SignalCache miss.  11n
+            # control responses go out in legacy OFDM.
             p = upload(np.frombuffer(bytes(psdu), np.uint8)[None], dev)
-            w = atx.modulate(p, int(rate), len(psdu))
-            if ir == "40m":
-                w = fe.upsample2(w)
-            elif ir == "44m":
-                w = fe.ofdm_upsample_44m(w)
+            if dsss:
+                w = btx.modulate(p, rate, len(psdu))
+                if ir in ("40m", "44m"):
+                    w = fe.pulse_shape_11b(w)
+                    if ir == "40m":
+                        w = fe.resample(w, 10, 11)
+            else:
+                w = atx.modulate(p, int(rate), len(psdu))
+                if ir == "40m":
+                    w = fe.upsample2(w)
+                elif ir == "44m":
+                    w = fe.ofdm_upsample_44m(w)
             return fetch(w[0])
         return modulate
 
@@ -378,7 +387,8 @@ class StreamingNode:
         key = self._prog_key()
         prog = self._prog_table.get(key)
         if prog is None:
-            prog = self._build_n() if self.cfg.phy == "n" else self._build_a()
+            prog = {"a": self._build_a, "b": self._build_b,
+                    "n": self._build_n}[self.cfg.phy]()
             self._prog_table[key] = prog
         self._decode, self._detect = prog
 
@@ -395,11 +405,9 @@ class StreamingNode:
         if bad:
             raise ValueError(f"cannot reconfigure {sorted(bad)} live "
                              f"(allowed: {sorted(allowed)})")
-        if changes.get("phy") in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[changes["phy"]])
         if changes.get("phy") == "n" and len(self.rings) != 2:
             raise ValueError("phy='n' needs two RX rings")
-        if "phy" in changes and changes["phy"] not in ("a", "n"):
+        if "phy" in changes and changes["phy"] not in ("a", "b", "n"):
             raise ValueError("phy must be a|b|n")
         structural = {"phy", "rate_mbps", "mcs"} & set(changes)
         for k, v in changes.items():
@@ -432,6 +440,39 @@ class StreamingNode:
             return arx.detect_only(fe.ofdm_frontend(xb, ir))
 
         return decode, detect
+
+    def _build_b(self):
+        cfg = self.cfg
+        to_chips = {"44m": fe.chip_frontend_44m,
+                    "40m": fe.chip_frontend_40m}.get(cfg.input_rate,
+                                                     lambda xb: xb)
+        max_psdu = min(cfg.max_psdu, 2048)
+        if cfg.rate_mbps is not None:
+            rate = cfg.rate_mbps
+
+            def decode(xb):
+                out = brx.rx_pipeline(to_chips(xb), rate, max_psdu=max_psdu)
+                return ("b_known", out, rate)
+        else:
+            # one-pass runtime rate dispatch (TBB11bRxRateSel,
+            # PHY_11b.hpp:378-463): all four rates decode on the card with
+            # a per-frame select, so the double buffer never waits between
+            # the PLCP and the data
+            def decode(xb):
+                out = brx.rx_pipeline_auto(to_chips(xb), max_psdu=max_psdu)
+                out["sig_ok"] = out.pop("plcp_ok")
+                out["pos"] = out.pop("data_chip0")
+                return out
+
+        return decode, (lambda xb: brx.detect_only(to_chips(xb)))
+
+    @staticmethod
+    def _norm_b(host: dict, rate) -> dict:
+        """The fixed-rate 11b result in the node's result form."""
+        host["sig_ok"] = host.pop("plcp_ok")
+        host["rate_mbps"] = np.full(len(host["ok"]), float(rate), np.float32)
+        host["pos"] = host.pop("data_chip0")
+        return host
 
     def _build_n(self):
         cfg = self.cfg
@@ -477,8 +518,9 @@ class StreamingNode:
         zd = device_complex16(np.zeros(self._batch_shape(), np.complex64),
                               self.device)
         out = self._decode(zd)
-        oks = ([o["ok"] for o in out[1:]] if isinstance(out, tuple)
-               else out["ok"])                  # the n_both form
+        oks = ([o["ok"] for o in out[1:] if isinstance(o, dict)]
+               if isinstance(out, tuple)        # the b_known, n_both forms
+               else out["ok"])
         Pending((self._detect(zd), oks)).get()
 
     def _batch_shape(self):
@@ -901,6 +943,8 @@ class StreamingNode:
             for k, a in h2.items():
                 sel = use1.reshape(use1.shape + (1,) * (a.ndim - 1))
                 host[k] = np.where(sel, h1[k], a)
+        elif isinstance(host, tuple):            # b_known: a fixed 11b rate
+            host = self._norm_b(host[1], host[2])
         self._dispatch(host, metas, det)
         self.sw.add(nsamp, time.perf_counter() - t0)
         self.stats.decoded_batches += 1
@@ -911,6 +955,9 @@ class StreamingNode:
 
     def _pos_scale(self) -> float:
         """Decoded-position units -> input-sample units (for dedup)."""
+        if self.cfg.phy == "b":     # chip (11 Msps) -> input rate
+            return {"11m": 1.0, "40m": 40.0 / 11.0, "44m": 4.0}[
+                self.cfg.input_rate]
         return {"20m": 1.0, "40m": 2.0, "44m": 2.2}[self.cfg.input_rate]
 
     def _dispatch(self, out: dict, metas: list, det: np.ndarray) -> None:

@@ -1,5 +1,5 @@
 """Sustained real-time demonstration on the device-resident air (port of
-``tools/realtime_soak.py``, phy "a" and "n").
+``tools/realtime_soak.py``, phy "a", "b" and "n").
 
 The air lives in device memory (``runtime/device_air.py``): only TX
 descriptors go up and decoded headers come down, so the live loop runs
@@ -10,7 +10,9 @@ time means a ratio below 1.0).
 Modes:
   rx     (default) saturated RX soak, every scheduled frame decoded and
          position-matched.  --phy a: back-to-back 1492-byte 54 Mbps OFDM
-         frames at 20 Msps.  --phy n: 1492-byte MCS 15 2x2 HT frames on a
+         frames at 20 Msps.  --phy b: 278-byte 11 Mbps CCK frames at
+         11 Msps chips, with gaps of 3100 chips (the first-burst DSSS lock
+         needs hop <= gap).  --phy n: 1492-byte MCS 15 2x2 HT frames on a
          two-antenna air, with gaps of 8600 samples (the single-onset HT
          lock needs hop <= gap).  --channel (phy a) adds 4-tap in-CP
          multipath synthesized on the card (one descriptor per tap).
@@ -21,7 +23,7 @@ Modes:
 
 Usage (on a machine with a CUDA card):
     python3 -m sora_tpu_torch.tools.realtime_soak [--mode rx|convo]
-        [--phy a|n] [--channel] [--seconds 62] [--depth 6]
+        [--phy a|b|n] [--channel] [--seconds 62] [--depth 6]
         [--json out.json]
 
 Prints progress every 5 s to stderr and a one-line JSON summary to
@@ -42,11 +44,16 @@ import torch
 
 from sora_tpu_torch.mac import frame as fr
 from sora_tpu_torch.phy.dot11a import tx as atx
+from sora_tpu_torch.phy.dot11b import tx as btx
 from sora_tpu_torch.phy.dot11n import tx as ntx
-from sora_tpu_torch.runtime.device_air import NOT_PORTED, BatchMac, DeviceAir
+from sora_tpu_torch.runtime.device_air import BatchMac, DeviceAir
 from sora_tpu_torch.util.xfer import Pending, fetch, resolve_device, upload
 
 SPS = 20e6
+# the air's sample rate per phy: 11 Msps DSSS chips for phy "b"
+PHY_SPS = {"a": SPS, "b": 11e6, "n": SPS}
+# PSDU bytes of the rx soak's frames (the goodput figure)
+SOAK_PSDU = {"a": 1492, "b": 278, "n": 1492}
 
 # in-CP multipath taps for --channel mode: each transmission becomes one
 # descriptor per tap (delayed offset, complex gain); the JAX package's
@@ -56,28 +63,37 @@ CH_TAPS = [(0, 1.0), (3, 0.45 * np.exp(0.9j)),
 
 
 # inter-frame gap and position-match tolerance of the rx soak, per phy
-SOAK_GAP = {"a": 640, "n": 8600}
-SOAK_MATCH_TOL = {"a": 600, "n": 2500}
+SOAK_GAP = {"a": 640, "b": 3100, "n": 8600}
+SOAK_MATCH_TOL = {"a": 600, "b": 2500, "n": 2500}
 
 
 def make_rx_soak_air(seed: int = 7, channel: bool = False, device=None,
                      phy: str = "a"):
-    """The canonical saturated-soak air: 64 cached 1492-byte frames
-    (modulated on ``device`` by the port's TX).  phy "a": 54 Mbps OFDM, 64
-    windows of 32768 samples, overlap 6144, 7 candidates per window;
+    """The canonical saturated-soak air: 64 cached frames (modulated on
+    ``device`` by the port's TX).  phy "a": 1492-byte 54 Mbps OFDM frames,
+    64 windows of 32768 samples, overlap 6144, 7 candidates per window;
     ``channel`` widens the descriptor budget for tap-expanded TX.  phy
-    "n": MCS 15 2x2 HT on a two-antenna air, 512 windows of 11264, overlap
-    3072 (hop 8192 <= the soak's 8600-sample gap, so every frame has a
-    window starting in its preceding gap; overlap >= the frame span),
-    min_mcs 15, noise 0.01.  Returns (air, psdus, span)."""
-    if phy in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[phy])
+    "b": 278-byte 11 Mbps CCK frames (250-byte payloads) at 11 Msps chips,
+    512 windows of 8192 chips, overlap 5120 (hop 3072 <= the soak's
+    3100-chip gap; overlap >= the 4336-chip frame span), max_psdu 512.
+    phy "n": 1492-byte MCS 15 2x2 HT on a two-antenna air, 512 windows
+    of 11264, overlap 3072 (hop 8192 <= the soak's 8600-sample gap, so
+    every frame has a window starting in its preceding gap; overlap >= the
+    frame span), min_mcs 15, noise 0.01.  Returns (air, psdus, span)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     psdus = [fr.build_data_frame(
-        bytes(rng.integers(0, 256, 1464, dtype=np.uint8)), seq=i)
-        for i in range(64)]
+        bytes(rng.integers(0, 256, SOAK_PSDU[phy] - 28, dtype=np.uint8)),
+        seq=i) for i in range(64)]
     arr = np.stack([np.frombuffer(p, np.uint8) for p in psdus])
+    if phy == "b":
+        waves = fetch(btx.modulate(upload(arr, dev), 11, arr.shape[1]))
+        span = waves.shape[1]
+        air = DeviceAir(list(waves), window=8192, batch=512, overlap=5120,
+                        slots=384, noise_rms=0.02, max_psdu=512,
+                        hdr_bytes=64, phy="b", seed=seed, device=dev)
+        assert span <= air.overlap, (span, air.overlap)
+        return air, psdus, span
     if phy == "n":
         waves = fetch(ntx.modulate(upload(arr, dev), 15, arr.shape[1]))
         span = waves.shape[-1]
@@ -99,9 +115,9 @@ def make_rx_soak_air(seed: int = 7, channel: bool = False, device=None,
 
 
 def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
-                device=None, phy: str = "a") -> dict:
+                device=None, phy: str = "a", strict: bool = True) -> dict:
     """Raises AssertionError unless every scheduled frame is
-    position-matched."""
+    position-matched (with ``strict``; else it logs the shortfall)."""
     if channel and phy != "a":
         raise ValueError("--channel is the 11a soak")
     air, psdus, span = make_rx_soak_air(channel=channel, device=device,
@@ -112,8 +128,9 @@ def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
             "(one descriptor per tap)")
     period = span + SOAK_GAP[phy]
     tol = SOAK_MATCH_TOL[phy]
+    sps = PHY_SPS[phy]
     adv = air.advance
-    air_per_round = adv / SPS
+    air_per_round = adv / sps
     n_rounds = int(np.ceil(seconds / air_per_round))
     log(f"rx soak [{phy}]: {n_rounds} rounds x {air_per_round*1e3:.1f}"
         f" ms air ({adv} samples), frame span {span}, period {period}, "
@@ -170,7 +187,7 @@ def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
             drain_one()
         now = time.perf_counter()
         if now > t_report:
-            air_t = (air.base - base_start) / SPS
+            air_t = (air.base - base_start) / sps
             log(f"  [{now-t_start:6.1f}s wall] {air_t:6.1f}s air "
                 f"dispatched, ratio so far "
                 f"{(now-t_start)/max(air_t, 1e-9):.3f}, delivered "
@@ -180,21 +197,25 @@ def run_rx_soak(seconds: float, depth: int, log, channel: bool = False,
     while inflight:
         drain_one()
     wall = time.perf_counter() - t_start
-    air_t = (air.base - base_start) / SPS
+    air_t = (air.base - base_start) / sps
     ratio = wall / air_t
-    log(f"rx soak done: {air_t:.1f}s of {SPS/1e6:.0f} Msps air in "
+    log(f"rx soak done: {air_t:.1f}s of {sps/1e6:.0f} Msps air in "
         f"{wall:.1f}s wall -> ratio {ratio:.3f}; delivered "
         f"{delivered}/{scheduled} ({ok_rows} ok candidate rows)")
     if delivered != scheduled:
-        raise AssertionError(f"delivered {delivered} of {scheduled} "
-                             "scheduled frames")
+        if strict:
+            raise AssertionError(f"delivered {delivered} of {scheduled} "
+                                 "scheduled frames")
+        log(f"  WARNING: {scheduled - delivered} of {scheduled} frames "
+            "not position-matched")
     return {"mode": "rx", "channel": bool(channel), "phy": phy,
             "rounds": n_rounds, "warm_rounds": warm_rounds,
             "air_seconds": round(air_t, 2),
             "wall_seconds": round(wall, 2), "ratio": round(ratio, 4),
             "frames_delivered": delivered, "frames_scheduled": scheduled,
-            "msps": round(air_t * SPS / 1e6 / wall, 2),
-            "decoded_mbps": round(delivered * 1492 * 8 / wall / 1e6, 1)}
+            "msps": round(air_t * sps / 1e6 / wall, 2),
+            "decoded_mbps": round(delivered * SOAK_PSDU[phy] * 8 / wall
+                                  / 1e6, 1)}
 
 
 def run_convo(seconds: float, depth: int, log, channel: bool = False,
@@ -307,7 +328,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("rx", "convo"), default="rx")
     ap.add_argument("--phy", choices=("a", "b", "n"), default="a",
-                    help="the rx soak's PHY (phy b is not ported)")
+                    help="the rx soak's PHY")
     ap.add_argument("--seconds", type=float, default=62.0)
     ap.add_argument("--depth", type=int, default=6)
     ap.add_argument("--channel", action="store_true",

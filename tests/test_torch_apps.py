@@ -2,8 +2,9 @@
 
 ``synthetic_traffic`` draws its payloads and noise from the same numpy
 generator as the JAX package's and modulates with the port's TX, so the
-stream equals the JAX app's (golden-model frames) within 1e-5; the CLI
-and the soak tool run end to end with ``--device cpu``.
+stream equals the JAX app's (golden-model frames) within 1e-5 for phy
+"a", "b" and "n", and the CLI's default stream equals the JAX CLI's; the
+CLI and the soak tool run end to end with ``--device cpu``.
 """
 
 import numpy as np
@@ -31,10 +32,18 @@ def test_synthetic_traffic_matches_jax(mixed, rate):
 
 
 def test_synthetic_traffic_phy_b_n_not_ported():
-    """phy "b" is not ported; phy "n" is: (2, N) 2x2 traffic, or (1, N)
-    single-stream, equal to the JAX app's within the TX tolerance."""
-    with pytest.raises(NotImplementedError):
-        tapp.synthetic_traffic(2, ADDR, False, 6, phy="b", device="cpu")
+    """Both are ported.  phy "b": 11 Msps DSSS chips, mixed over the four
+    rates or at one, the gap floored at 2400; phy "n": (2, N) 2x2 traffic,
+    or (1, N) single-stream.  Each equals the JAX app's within the TX
+    tolerance."""
+    for mixed, rate, gap in ((True, 2, 900), (False, 5.5, 3000),
+                             (False, 1, 100)):
+        got = tapp.synthetic_traffic(6, ADDR, mixed, rate, gap=gap, phy="b",
+                                     device="cpu")
+        want = japp.synthetic_traffic(6, ADDR, mixed, rate, gap=gap, phy="b")
+        assert got.dtype == want.dtype == np.complex64
+        assert got.shape == want.shape and got.ndim == 1
+        assert np.abs(got - want).max() < TRAFFIC_ATOL
     for mixed, mcs, gap in ((True, 8, 900), (False, 13, 4096),
                             (False, 4, 3300)):
         got = tapp.synthetic_traffic(10, ADDR, mixed, mcs, gap=gap,
@@ -45,6 +54,36 @@ def test_synthetic_traffic_phy_b_n_not_ported():
         assert got.shape == want.shape == ((1 if mcs < 8 else 2),
                                            got.shape[-1])
         assert np.abs(got - want).max() < TRAFFIC_ATOL
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("phy", ["a", "b", "n"])
+def test_cli_default_stream_equals_jax_app(monkeypatch, phy):
+    """With the same flags the port's CLI builds the JAX CLI's synthetic
+    air: the JAX app passes the default gap (900, floored at 2400 for phy
+    "b" and 3200 for phy "n"; sora_tpu/apps/node.py:191-192, :48, :52),
+    and so does the port unless given --gap."""
+    built = []
+
+    def capture(*args, **kwargs):
+        built.append(tapp_synthetic(*args, **kwargs))
+        raise _Built
+
+    tapp_synthetic = tapp.synthetic_traffic
+    monkeypatch.setattr(tapp, "synthetic_traffic", capture)
+    with pytest.raises(_Built):
+        tapp.main(["--phy", phy, "--synthetic", "6", "--mixed", "--device",
+                   "cpu"])
+    want = japp.synthetic_traffic(6, ADDR, True,
+                                  {"a": 6, "b": 2, "n": 8}[phy], phy=phy)
+    got = built[0]
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < TRAFFIC_ATOL
+    with pytest.raises(SystemExit):
+        tapp.main(["--synthetic", "6", "--gap", "wide", "--device", "cpu"])
 
 
 def test_node_app_decodes_synthetic_traffic(capsys):
@@ -72,13 +111,25 @@ class _PassClock:
 
 def test_node_app_phy_n_decodes_mixed_mcs(capsys, monkeypatch):
     """--phy n: two rings, mixed MCS 8-15 traffic with the gap at the
-    node's hop, every frame decoded and ACKed."""
+    node's hop (--gap hop), every frame decoded and ACKed."""
     monkeypatch.setattr(tapp, "time", _PassClock())
     tapp.main(["--phy", "n", "--synthetic", "16", "--mixed", "--device",
-               "cpu", "--seconds", "1.5", "--batch", "4"])
+               "cpu", "--seconds", "1.5", "--batch", "4", "--gap", "hop"])
     out = capsys.readouterr().out
     assert "frame_ok           16" in out, out
     assert "16 frames, 16 acks" in out, out
+
+
+def test_node_app_phy_b_decodes_mixed_rates(capsys, monkeypatch):
+    """--phy b: 11 Msps chips on one ring, mixed 1/2/5.5/11 Mbps traffic
+    with the gap at the node's hop (the DSSS receiver locks on the first
+    burst of a window), every frame decoded and ACKed."""
+    monkeypatch.setattr(tapp, "time", _PassClock())
+    tapp.main(["--phy", "b", "--synthetic", "12", "--mixed", "--device",
+               "cpu", "--seconds", "1.5", "--batch", "2", "--gap", "hop"])
+    out = capsys.readouterr().out
+    assert "frame_ok           12" in out, out
+    assert "12 frames, 12 acks" in out, out
 
 
 def test_node_soak_tool_runs(capsys):

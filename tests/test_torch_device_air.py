@@ -11,8 +11,9 @@ and the initial carry, drawn with numpy in both, bit for bit.  The noisy
 air is checked on its own: continuity across rounds, quiet empty air,
 on-device TX staging and multipath taps.  phy "n" (two antennas, the 2x2
 mixed-MCS receiver per window) is held to the JAX air the same way, on
-the scenario of tests/test_device_air.py.  Sizes are small (4 or 8
-windows of 4096 samples), as in tests/test_device_air.py.
+the scenario of tests/test_device_air.py, and so is phy "b" (11 Msps
+chips, the mixed-rate DSSS receiver per window).  Sizes are small (4 or 8
+windows of 4096 or 4608 samples), as in tests/test_device_air.py.
 """
 
 import numpy as np
@@ -228,8 +229,9 @@ def test_same_seed_same_rounds(frames):
 
 def test_unported_phys_and_bad_arguments_raise(frames):
     _, waves = frames
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port(waves, phy="b")
+    # phy "b" is ported: one chain, one candidate per window
+    dsss = _port(waves, phy="b")
+    assert dsss.n_ant == 1 and dsss.n_frames == 1
     # phy "n" carries two antennas: one-chain waves are refused, on-card
     # TX staging stays the OFDM path
     with pytest.raises(ValueError, match="chains"):
@@ -378,3 +380,96 @@ def test_ht_phy_noisy_air_decodes(ht_frames):
     assert _has_header(out, psdus[1])
     quiet, _ = air.step([])
     assert int(quiet[0]["ok"].sum()) == 0
+
+
+# ---- phy "b": the 11 Msps DSSS air -----------------------------------------
+
+B_KW = dict(window=4608, batch=8, overlap=3072, slots=8, max_psdu=128,
+            hdr_bytes=64, phy="b")
+B_EXACT = ["ok", "length", "rate_mbps", "lts1"]
+
+
+@pytest.fixture(scope="module")
+def dsss_frames():
+    from sora_tpu.golden import dot11b_np as gb
+
+    psdus = [jfr.build_data_frame(bytes([i]) * 40, seq=i) for i in range(2)]
+    return psdus, [gb.modulate(p, r).astype(np.complex64)
+                   for p, r in zip(psdus, (11, 11))]
+
+
+def test_dsss_phy_noise_free_rounds_match_jax(dsss_frames):
+    """The scenario of tests/test_device_air.py:160-186 (two DSSS frames,
+    gaps longer than the hop, the first-burst lock) on noise-free air,
+    over two rounds with a frame straddling the boundary: both airs decode
+    every frame with equal flags, lengths, rates, positions and headers."""
+    psdus, waves = dsss_frames
+    span = max(len(w) for w in waves)
+    ta = tda.DeviceAir(waves, device="cpu", noise_rms=0.0, **B_KW)
+    ja = jda.DeviceAir(waves, noise_rms=0.0, **B_KW)
+    assert span <= ta.overlap and ta.n_frames == ja.n_frames == 1
+    assert (ta.L, ta.carry_len, ta.advance) == (ja.L, ja.carry_len,
+                                                ja.advance)
+    offs = [500, 500 + span + 1700]          # gaps > hop (1536)
+    rounds = [[(i, o, 1.0) for i, o in enumerate(offs)]
+              + [(1, ta.advance - span + 400, 1.0)], [(0, 3000, 1.0)]]
+    for r, tx in enumerate(rounds):
+        to, tb = ta.step(tx)
+        jo, jb = ja.step(tx)
+        got = fetch(to[0])
+        want = {k: np.asarray(v) for k, v in jo[0].items()}
+        assert tb == jb and sorted(got) == sorted(want)
+        for key in B_EXACT:
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        ok = want["ok"].astype(bool)
+        np.testing.assert_array_equal(got["hdr"][ok], want["hdr"][ok])
+        np.testing.assert_allclose(ta._carry.numpy(), np.asarray(ja._carry),
+                                   rtol=0, atol=CARRY_ATOL)
+        if r == 0:
+            for off in offs:
+                assert _match(ta, got, tb, off - 192, tol=1500), off
+            assert _has_header(got, psdus[0])
+            o0, b0 = got, tb
+        else:
+            assert _match(ta, got, tb, tb + 3000 - 192, tol=1500)
+            straddle = b0 + rounds[0][2][1] - 192
+            assert (_match(ta, o0, b0, straddle, tol=1500)
+                    or _match(ta, got, tb, straddle, tol=1500))
+
+
+def test_dsss_phy_noisy_air_decodes(dsss_frames):
+    """The DSSS air with receiver noise (torch.Generator): both frames
+    decode, and empty air stays quiet."""
+    psdus, waves = dsss_frames
+    air = tda.DeviceAir(waves, device="cpu", noise_rms=0.01, **B_KW)
+    span = max(len(w) for w in waves)
+    offs = [500, 500 + span + 1700]
+    outs, base = air.step([(i, o, 1.0) for i, o in enumerate(offs)])
+    out = fetch(outs[0])
+    for off in offs:
+        assert _match(air, out, base, off - 192, tol=1500), off
+    assert _has_header(out, psdus[1])
+    quiet, _ = air.step([])
+    assert int(quiet[0]["ok"].sum()) == 0
+
+
+def test_rx_soak_tool_phy_b_delivers_every_frame(monkeypatch):
+    """``tools/realtime_soak.py --phy b`` at a small width: the canonical
+    11b air cut to 8 windows a round on the CPU, every scheduled frame
+    position-matched, goodput counted on 278-byte PSDUs."""
+    from sora_tpu_torch.tools import realtime_soak as soak
+
+    class SmallAir(tda.DeviceAir):
+        def __init__(self, waves, **kw):
+            super().__init__(waves, **{**kw, "batch": 8, "device": "cpu"})
+
+    monkeypatch.setattr(soak, "DeviceAir", SmallAir)
+    monkeypatch.setattr(soak, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    air, psdus, span = soak.make_rx_soak_air(phy="b")
+    assert (air.window, air.overlap, air.max_psdu) == (8192, 5120, 512)
+    assert span == 4336 and len(psdus[0]) == soak.SOAK_PSDU["b"] == 278
+    res = soak.run_rx_soak(0.01, 2, lambda *a: None, phy="b")
+    assert res["phy"] == "b" and res["frames_scheduled"] > 0
+    assert res["frames_delivered"] == res["frames_scheduled"]

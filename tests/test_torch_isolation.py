@@ -3,7 +3,8 @@
 * Importing every module of the package pulls in neither JAX nor any
   module of the JAX package ``sora_tpu`` (checked in a fresh process).
 * No source of the package, nor chip_smoke.py, imports them.
-* Entry points that take host data default to CUDA and raise without it.
+* Entry points that take host data default to CUDA and raise without it;
+  the bench tool exits nonzero.
 * The kernel module imports without nvcc, and a build without nvcc raises.
 * The native ring library builds only at first use, never on import, and
   a build without g++ raises.
@@ -24,7 +25,9 @@ import sora_tpu_torch
 from sora_tpu_torch.ops import viterbi_cuda as vc
 from sora_tpu_torch.apps import node as tapp
 from sora_tpu_torch.phy.dot11a import rx as trx
+from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11n import rx as nrx
+from sora_tpu_torch.tools import bench
 from sora_tpu_torch.runtime import device_air, native, node, radio
 from sora_tpu_torch.util import xfer
 
@@ -104,6 +107,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         radio.SoftRadio()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapp.synthetic_traffic(1, b"\x02SORA1", False, 24)
+    # 802.11b: the receiver, the air, the traffic and the node
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        brx.demodulate(x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_air.DeviceAir([x], window=512, batch=2, overlap=128,
+                             phy="b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapp.synthetic_traffic(1, b"\x02SORA1", False, 11, phy="b")
+    ring_b = native.RxRing(capacity=1 << 12)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        node.StreamingNode(ring_b, node.NodeConfig(
+            phy="b", input_rate="11m", max_psdu=64, batch=1))
+    assert brx.demodulate(x, device="cpu").reason == "no_frame"
+    assert node.StreamingNode(ring_b, node.NodeConfig(
+        phy="b", input_rate="11m", max_psdu=64, batch=1),
+        device="cpu").device.type == "cpu"
+    ring_b.close()
+    # the bench tool exits nonzero and prints no result
+    assert bench.main() == 1
     ring = native.RxRing(capacity=1 << 12)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1))
@@ -152,7 +174,7 @@ run = subprocess.run
 subprocess.run = lambda *a, **k: calls.append(a) or run(*a, **k)
 import sora_tpu_torch.runtime.native as native
 import sora_tpu_torch.runtime.node, sora_tpu_torch.apps.bridge
-import sora_tpu_torch.tools.node_soak
+import sora_tpu_torch.tools.node_soak, sora_tpu_torch.tools.bench
 print(native._lib is None, len(calls))
 """
 

@@ -153,23 +153,31 @@ def test_frame_span_equals_jax():
 
 @pytest.mark.parametrize("phy", ["b", "n"])
 def test_phy_b_and_n_raise_not_implemented(phy):
-    """phy "b" is not ported (NotImplementedError naming item 9); phy "n"
-    is, and on one ring raises the JAX package's ValueError (it needs two
-    rings, node.py:270 and :404)."""
+    """Both are ported.  phy "b" builds on one ring, and a phy "a" node
+    reconfigures to it; phy "n" on one ring raises the JAX package's
+    ValueError (it needs two rings, node.py:270 and :404)."""
     ring = tnative.RxRing(capacity=1 << 16)
-    err, match = {"b": (NotImplementedError, "item 9"),
-                  "n": (ValueError, "two RX rings")}[phy]
-    with pytest.raises(err, match=match):
-        tnode.StreamingNode(ring, tnode.NodeConfig(
-            phy=phy, input_rate="11m" if phy == "b" else "20m"),
-            device="cpu")
-    with pytest.raises(ValueError):
-        jnode.StreamingNode(ring, jnode.NodeConfig(phy="n"))
+    if phy == "b":
+        node = tnode.StreamingNode(ring, tnode.NodeConfig(
+            phy="b", input_rate="11m", max_psdu=72, batch=2), device="cpu")
+        assert node.cfg.ack_rate == 2 and node._pos_scale() == 1.0
+    else:
+        with pytest.raises(ValueError, match="two RX rings"):
+            tnode.StreamingNode(ring, tnode.NodeConfig(phy="n"),
+                                device="cpu")
+        with pytest.raises(ValueError):
+            jnode.StreamingNode(ring, jnode.NodeConfig(phy="n"))
     node = tnode.StreamingNode(ring, tnode.NodeConfig(**BASE), device="cpu")
-    with pytest.raises(err, match=match):
-        node.reconfigure(phy=phy)
+    if phy == "b":
+        node.reconfigure(phy="b", rate_mbps=11)
+        assert node._decode is node._prog_table[("b", 11, None)][0]
+    else:
+        with pytest.raises(ValueError, match="two RX rings"):
+            node.reconfigure(phy=phy)
     with pytest.raises(ValueError):
         node.reconfigure(window=1234)
+    with pytest.raises(ValueError, match="phy must be"):
+        node.reconfigure(phy="g")
     ring.close()
 
 
@@ -296,6 +304,99 @@ def test_fixed_rate_reconfigure_equal_jax(rng):
     j, t = _both(BASE, [], capacity=1 << 21, act=act)
     _assert_same(j, t)
     assert t.stats.frame_ok == 4
+
+
+# -- 11b: 11 Msps chips on one ring (the scenarios of tests/test_node.py) ----
+
+B_BASE = dict(phy="b", input_rate="11m", window=8192, batch=2, overlap=6144,
+              max_psdu=72, min_rate_mbps=2, addr=ADDR, sample_rate_sps=11e6)
+
+
+def _traffic_b(rng, rates=(2, 5.5, 11), to=ADDR, gap=2200, nbytes=40):
+    """DSSS frames from the golden model, one per rate, plus noise (the
+    traffic of tests/test_node.py:141)."""
+    from sora_tpu.golden import dot11b_np as gb
+
+    pieces, psdus = [], []
+    for i, rate in enumerate(rates):
+        hdr = MacHeader(addr1=to, addr2=PEER, addr3=to,
+                        seq_ctrl=(i & 0xFFF) << 4)
+        psdu = append_fcs(hdr.pack() + bytes(
+            rng.integers(0, 256, nbytes, dtype=np.uint8)))
+        psdus.append(psdu)
+        pieces += [np.zeros(gap, np.complex64),
+                   gb.modulate(psdu, rate).astype(np.complex64)]
+    pieces.append(np.zeros(3 * gap, np.complex64))
+    x = np.concatenate(pieces)
+    x += (rng.normal(size=len(x)) + 1j * rng.normal(size=len(x))
+          ).astype(np.complex64) * 0.01
+    return x, psdus
+
+
+@pytest.mark.parametrize("rate", [None, 11])
+def test_11b_decode_and_ack_equal_jax(rng, rate):
+    """Mixed-rate DSSS traffic (2, 5.5, 11 Mbps) through the auto dispatch,
+    or only its 11 Mbps frame through the fixed-rate program (the others
+    fail their SIGNAL check); ACKs at 2 Mbps DSSS (tests/test_node.py:160)."""
+    x, psdus = _traffic_b(rng)
+    j, t = _both(dict(B_BASE, rate_mbps=rate), [x])
+    _assert_same(j, t)
+    want = 3 if rate is None else 1
+    assert t.stats.frame_ok == t.stats.acks_tx == want
+    assert {s for s, _ in t.rx_payloads} == {PEER}
+    assert [p for _, p in t.rx_payloads] == [p[24:-4] for p in psdus][-want:]
+
+
+def test_11b_ack_waveform_equals_golden_and_decodes():
+    from sora_tpu.golden import dot11b_np as gb
+
+    ring = tnative.RxRing(capacity=1 << 16)
+    node = tnode.StreamingNode(ring, tnode.NodeConfig(**B_BASE), device="cpu")
+    ack = build_ack_frame(PEER)
+    wave = node.cache.get(ack, node.cfg.ack_rate)
+    ring.close()
+    want = gb.modulate(ack, 2).astype(np.complex64)
+    assert wave.dtype == np.complex64 and wave.shape == want.shape
+    assert np.abs(wave - want).max() < ACK_ATOL
+    res = gb.demodulate(np.concatenate([np.zeros(64, np.complex64), wave,
+                                        np.zeros(64, np.complex64)]))
+    assert res.ok and res.rate_mbps == 2 and res.psdu == ack
+
+
+def test_11b_cs_gates_idle_air_equal_jax(rng):
+    noise = (rng.normal(size=60000) + 1j * rng.normal(size=60000)
+             ).astype(np.complex64) * 0.05
+    j, t = _both(B_BASE, [noise])
+    _assert_same(j, t)
+    assert t.stats.frame_ok == t.stats.decoded_batches == 0
+    assert t.stats.cs_timeout > 0
+
+
+@pytest.mark.parametrize("ir", ["44m", "40m"])
+def test_11b_radio_rate_input_equal_jax(rng, ir):
+    """44 and 40 Msps input: the chip front end runs ahead of the DSSS
+    receiver, positions scale to input samples, and the ACKs go out pulse
+    shaped at the input rate."""
+    import jax.numpy as jnp
+
+    from sora_tpu.phy import frontend as jfe
+
+    x, _ = _traffic_b(rng, rates=(11, 2), gap=2000)
+    y = jfe.pulse_shape_11b(jnp.asarray(x[None]))
+    if ir == "40m":
+        y = jfe.resample(y, 10, 11)
+    y = np.asarray(y)[0]
+    y = (y + (rng.normal(size=len(y)) + 1j * rng.normal(size=len(y)))
+         * 0.005).astype(np.complex64)
+    cfg = dict(B_BASE, input_rate=ir, window=32768, overlap=24576,
+               sample_rate_sps=44e6 if ir == "44m" else 40e6)
+    j, t = _both(cfg, [y], capacity=1 << 21)
+    _assert_same(j, t)
+    assert t.stats.frame_ok == t.stats.acks_tx == 2
+    ack = build_ack_frame(PEER)
+    tw, jw = t.cache.get(ack, 2), j.cache.get(ack, 2)
+    assert tw.shape == jw.shape
+    assert np.abs(tw - jw).max() < ACK_ATOL
 
 
 # -- 11n: two rings (the scenarios of tests/test_node.py) ---------------------
