@@ -108,12 +108,42 @@ Phases (any failure raises and the script exits nonzero):
    64``, the gap at the node's hop): one batch card against CPU, two steps
    without an implicit sync, the 400 frames written once and decoded
    (frame_ok >= 98%, crc_fail <= 2%, ACKs sent), the device-only ratio;
-22. a JSON line of the kernels, the card line, and as the last line
+22. sharding: ``parallel.shard.make_mesh(1)`` (a (1, 1) mesh over an
+   NCCL world of 1) and the six sharded receivers on the inputs the
+   earlier phases built — ``rx_pipeline_sharded(x, mesh, 54, max_psdu=
+   1504)`` on the 128 x 5452 capture batch, ``rx_pipeline_sharded_auto``
+   on the 128 x 40736 mixed-rate batch and on the raw 40 Msps capture
+   (``input_rate="40m"``), ``rx_pipeline_sharded_11n`` MCS 15 on 128 x 2 x
+   3120, ``rx_pipeline_sharded_11n_auto`` on the mixed-MCS 8-15 batch and
+   ``rx_pipeline_sharded_11b`` on bench.py's 11b row: ok 128/128, 1, 1, 1,
+   2, 2 and 0 kernel launches, every exact field (and lts1 from the
+   sharded sync) equal to the unsharded pipeline on the same input, cfo /
+   det / snr_db within 1e-6 / 1e-4 / 1e-3; the kernel against its plain
+   version on the sharded 11a call's own Viterbi input; sharded and
+   unsharded times (median of 5 interleaved windows of 20) and their
+   ratio, the sharding tax at (1, 1), with each one's device time and
+   launches; the event time of each size-1 NCCL collective.  Several
+   ranks on one card are not driven: NCCL refuses two ranks on one GPU,
+   and gloo's send/recv of CUDA tensors, which the halo needs, fails on
+   the card (PERF.md); the multi-rank program is held by the CPU tests;
+23. ``apps.tvws`` at its CLI defaults: exit 0, 8/8 frames, 1 launch per
+   ``decode_band``; ``decode_band`` on the card equal to the CPU frame for
+   frame;
+24. ``apps.sniffer``: 32 mixed-rate synthetic frames to a pcap that reads
+   back equal to the logged frames, and the 40 Msps capture replayed for
+   3 s, frames above 0; each run 1 launch for the node's warm-up and 1
+   per decoded batch;
+25. ``apps.demod11``: mod then demod through the torch chain for 11a (54
+   Mbps), 11b (11 Mbps) and 11n (MCS 15, two dumps), the raw 40 Msps
+   capture through the device front end, and ``--mode ack --rate 24``
+   MATCH; 1, 0, 2, 1 and 0 launches;
+26. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
 and read just after, and fails if the kernel was not launched — or, for
-the 11b paths, which reach no Viterbi, if it was launched at all.  It
+the 11b paths and the ACK, which reach no Viterbi, if it was launched at
+all.  It
 imports nothing of JAX or of the JAX package.
 """
 
@@ -443,12 +473,13 @@ def tx_and_mixed_phase(torch, dev, rx, vc, parity) -> dict:
     return {"batch": [BATCH, MIXED_N], "trellis": list(ab.shape[:2]),
             "ms": ms, "msamples_per_s": BATCH * MIXED_N / ms / 1e3,
             "decoded_mbps": BATCH * PSDU_LEN * 8 / ms / 1e3,
-            "tx_max_abs_err": worst, "launches": launches}
+            "tx_max_abs_err": worst, "launches": launches, "x": x}
 
 
-def frontend_phase(torch, dev, rx, vc, psdu0: np.ndarray) -> int:
+def frontend_phase(torch, dev, rx, vc, psdu0: np.ndarray):
     """Phase 7: the raw 40 Msps capture through the front end and the
-    fixed-rate receiver, 128 streams."""
+    fixed-rate receiver, 128 streams.  Returns (launches, the batch on
+    the card)."""
     from sora_tpu_torch.io.dumpfile import load_dump
     from sora_tpu_torch.util.xfer import device_complex, fetch
 
@@ -477,7 +508,7 @@ def frontend_phase(torch, dev, rx, vc, psdu0: np.ndarray) -> int:
     check_rows(host, cpu, 4, ("psdu", "ok", "fcs_ok", "sig_ok", "cs_ok",
                               "truncated", "length", "lts1"))
     print("card and CPU agree on the first 4 rows at 40 Msps", flush=True)
-    return launches
+    return launches, xd
 
 
 def soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
@@ -1002,7 +1033,7 @@ def ht_fixed_phase(torch, dev, vc, parity, int32_ops_per_s, mcs: int,
             "latency_p50_ms": p50, "latency_p90_ms": p90,
             "stage_ms": stage_ms, "device_ms": dev_ms, "idle_share": idle,
             "device_launches": dev_launches, "launches": launches,
-            "kernel": kern}
+            "kernel": kern, "x": xd}
 
 
 def ht_sgi_phase(torch, dev, vc) -> int:
@@ -1095,7 +1126,7 @@ def ht_mixed_phase(torch, dev, vc, parity, one_ss: bool) -> dict:
     return {"batch": [HT_BATCH, 2, N], "trellis": list(seen[1].shape[:2]),
             "ms": ms, "msamples_per_s_per_antenna": HT_BATCH * N / ms / 1e3,
             "decoded_mbps": HT_BATCH * PSDU_LEN * 8 / ms / 1e3,
-            "launches": launches}
+            "launches": launches, "x": x}
 
 
 def ht_soak_phase(torch, vc, parity, int32_ops_per_s, card) -> dict:
@@ -1513,7 +1544,7 @@ def b11_batch_phase(torch, dev, vc) -> dict:
             "b11_msps": msps, "decoded_mbps": mbps, "latency_p50_ms": p50,
             "latency_p90_ms": p90, "stage_ms": stage_ms, "device_ms": dev_ms,
             "idle_share": idle, "device_launches": dev_launches,
-            "short_batch": list(xs.shape), "launches": launches}
+            "short_batch": list(xs.shape), "launches": launches, "x": xd}
 
 
 def b11_frontend_phase(torch, dev, vc) -> int:
@@ -1748,6 +1779,366 @@ def b11_node_phase(torch, dev, vc, card) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# sharding and the apps (phases 22-25)
+# ---------------------------------------------------------------------------
+
+# sharded against unsharded on the same card input (the JAX package's
+# sharding tolerances, tests/test_sharding.py:46-47, 139-142)
+SHARD_ATOL = {"cfo": 1e-6, "det": 1e-4, "snr_db": 1e-3}
+A_KEYS = ("psdu", "ok", "fcs_ok", "length")
+A_AUTO_KEYS = A_KEYS + ("sig_ok", "cs_ok", "rate_mbps")
+N_KEYS = ("ok", "fcs_ok", "cs_ok", "mcs", "length")
+TVWS_ARGS = ("--synthetic", "8", "--channels=-10e6,10e6")
+
+
+def shard_path(torch, vc, name: str, sharded, plain, sync, want: int,
+               keys, full_psdu: bool = True) -> dict:
+    """One sharded receiver against the unsharded one on the same input:
+    ok on every row, ``want`` kernel launches, the exact fields equal
+    (the PSDU bytes in full, or within each row's length where the two
+    decode different trellis lengths), lts1 from the sharded sync equal,
+    cfo / det / snr within SHARD_ATOL, and both timed (interleaved
+    windows) and profiled."""
+    from sora_tpu_torch.tools.scaling_bench import tax_ms
+    from sora_tpu_torch.util.xfer import fetch
+
+    sharded()                                   # first-use tables
+    torch.cuda.synchronize()
+    vc.LAUNCHES = 0
+    with viterbi_inputs() as seen:
+        out = sharded()
+        torch.cuda.synchronize()
+    launches = vc.LAUNCHES
+    if launches != want:
+        raise AssertionError(f"{name} launched the kernel {launches} times, "
+                             f"expected {want}")
+    got, ref = fetch(out), fetch(plain())
+    B = len(got["ok"])
+    n_ok = int(got["ok"].sum())
+    if n_ok != B:
+        raise AssertionError(f"{name}: ok {n_ok}/{B}")
+    for k in keys:
+        if k == "psdu" and not full_psdu:
+            bad = any(not np.array_equal(got["psdu"][i, :n],
+                                         ref["psdu"][i, :n])
+                      for i, n in enumerate(ref["length"]))
+        else:
+            bad = not np.array_equal(got[k], ref[k])
+        if bad:
+            raise AssertionError(f"{name}: sharded and unsharded disagree "
+                                 f"on {k}")
+    diffs = {}
+    if sync is not None:
+        l1, cfo, det = fetch(sync[0]())
+        u1, ucfo, udet = fetch(sync[1]())
+        if not np.array_equal(l1, u1):
+            raise AssertionError(f"{name}: the sharded sync's lts1 differs")
+        diffs.update(cfo=float(np.abs(cfo - ucfo).max()),
+                     det=float(np.abs(det - udet).max()))
+    for k in ("det", "snr_db"):
+        if k in got and k in ref:
+            diffs[k] = max(diffs.get(k, 0.0),
+                           float(np.abs(got[k] - ref[k]).max()))
+    for k, v in diffs.items():
+        if not v <= SHARD_ATOL[k]:
+            raise AssertionError(f"{name}: {k} differs by {v}")
+    ms_plain, ms_shard = tax_ms(plain, sharded)
+    dev = {k: profile_device(fn, 3)[:2] for k, fn in (("plain", plain),
+                                                      ("sharded", sharded))}
+    print(f"{name}: ok {n_ok}/{B}, kernel launches {launches}; "
+          f"{', '.join(keys)}{' (within length)' if not full_psdu else ''}"
+          f"{', lts1' if sync else ''} equal to the unsharded pipeline; "
+          + "".join(f"{k} within {v:.2e}; " for k, v in diffs.items())
+          + f"sharded {ms_shard:.3f} ms, unsharded {ms_plain:.3f} ms per "
+          f"batch (events, median of 5 interleaved windows of 20): "
+          f"sharding tax {ms_shard / ms_plain:.3f}; device time / device "
+          "launches per call: " + ", ".join(
+              f"{k} {'not measured' if v[0] is None else f'{v[0]:.3f} ms'}"
+              f" / {v[1]:.0f}" for k, v in dev.items()), flush=True)
+    return {"launches": launches, "ms": ms_shard, "plain_ms": ms_plain,
+            "tax": ms_shard / ms_plain, "diffs": diffs,
+            "device_ms": {k: v[0] for k, v in dev.items()},
+            "device_launches": {k: v[1] for k, v in dev.items()},
+            "soft": seen}
+
+
+def collective_ms(torch, mesh, dev) -> dict:
+    """Event time of each size-1 NCCL collective the sharded receivers
+    issue, at their shapes on the (1, 1) mesh (100 calls each)."""
+    import torch.distributed as tdist
+
+    sp = mesh.get_group("sp")
+    v = torch.ones(BATCH, device=dev)
+    i = torch.ones(BATCH, dtype=torch.int64, device=dev)
+    gi = torch.empty_like(i)
+    xb = torch.ones(BATCH, 5452, dtype=torch.complex64, device=dev)
+    xo = torch.empty_like(xb)
+    return {
+        "all_reduce (128,) f32": cuda_ms(
+            lambda: tdist.all_reduce(v, group=sp), 100),
+        "all_gather (128,) i64": cuda_ms(
+            lambda: tdist.all_gather_into_tensor(gi, i, group=sp), 100),
+        "all_to_all_single 128x5452 c64": cuda_ms(
+            lambda: tdist.all_to_all_single(torch.view_as_real(xo),
+                                            torch.view_as_real(xb),
+                                            group=sp), 100)}
+
+
+def sharded_phase(torch, dev, vc, parity, xs: dict) -> dict:
+    """Phase 22: the sharded receivers on a (1, 1) NCCL mesh of the card
+    at bench.py's widths, on the inputs the earlier phases built, each
+    against its unsharded pipeline; the kernel against its plain version
+    on the sharded 11a call's own Viterbi input; the size-1 collectives'
+    cost."""
+    from sora_tpu_torch.parallel import shard as psh
+    from sora_tpu_torch.phy.dot11a import rx as arx
+    from sora_tpu_torch.phy.dot11b import rx as brx
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+
+    t0 = time.perf_counter()
+    mesh = psh.make_mesh(1)
+    world = torch.distributed.get_world_size()
+    backend = torch.distributed.get_backend()
+    print(f"make_mesh(1): {tuple(mesh.mesh.shape)} mesh over a world of "
+          f"{world} ({backend}) in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    x, xa, x40, x15, xn, xb = (xs[k] for k in ("a", "auto", "40m", "n15",
+                                               "nauto", "b"))
+    sync_a = lambda v: (lambda: psh.synchronize_sharded(v, mesh),
+                        lambda: arx.synchronize(v))
+    sync_n = lambda v: (lambda: psh.synchronize_sharded_11n(v, mesh),
+                        lambda: nrx.synchronize(v))
+    res = {}
+    res["rx_pipeline_sharded"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded(x, mesh, 54, max_psdu=1504) "
+        f"{tuple(x.shape)}",
+        lambda: psh.rx_pipeline_sharded(x, mesh, RATE, max_psdu=MAX_PSDU),
+        lambda: arx.rx_pipeline(x, RATE, max_psdu=MAX_PSDU), sync_a(x), 1,
+        A_KEYS)
+    ab = res["rx_pipeline_sharded"]["soft"][0]
+    parity("sharded rx_pipeline soft", ab, *auto_window(ab.shape[1]), True)
+    res["rx_pipeline_sharded_auto"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded_auto {tuple(xa.shape)}",
+        lambda: psh.rx_pipeline_sharded_auto(xa, mesh, max_psdu=MAX_PSDU),
+        lambda: arx.rx_pipeline_auto(xa, max_psdu=MAX_PSDU), sync_a(xa), 1,
+        A_AUTO_KEYS)
+    res["rx_pipeline_sharded_auto 40m"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded_auto(input_rate='40m') raw 40 Msps "
+        f"{tuple(x40.shape)}",
+        lambda: psh.rx_pipeline_sharded_auto(x40, mesh, max_psdu=MAX_PSDU,
+                                             input_rate="40m"),
+        lambda: arx.rx_pipeline_auto(x40, max_psdu=MAX_PSDU,
+                                     input_rate="40m"), None, 1, A_AUTO_KEYS)
+    res["rx_pipeline_sharded_11n MCS 15"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded_11n MCS 15 {tuple(x15.shape)}",
+        lambda: psh.rx_pipeline_sharded_11n(x15, mesh, 15,
+                                            max_psdu=MAX_PSDU),
+        lambda: nrx.rx_pipeline(x15, 15, max_psdu=MAX_PSDU), sync_n(x15), 2,
+        ("psdu",) + N_KEYS)
+    res["rx_pipeline_sharded_11n_auto"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded_11n_auto MCS 8-15 "
+        f"{tuple(xn.shape)}",
+        lambda: psh.rx_pipeline_sharded_11n_auto(xn, mesh, max_psdu=MAX_PSDU),
+        lambda: nrx.rx_pipeline_auto(xn, max_psdu=MAX_PSDU), sync_n(xn), 2,
+        ("psdu", "sig_ok") + N_KEYS, full_psdu=False)
+    res["rx_pipeline_sharded_11b"] = shard_path(
+        torch, vc, f"rx_pipeline_sharded_11b {tuple(xb.shape)}",
+        lambda: psh.rx_pipeline_sharded_11b(xb, mesh, max_psdu=B11_MAX_PSDU),
+        lambda: brx.rx_pipeline_auto(xb, max_psdu=B11_MAX_PSDU), None, 0,
+        B11_ROW_KEYS)
+    for r in res.values():
+        r.pop("soft")
+    coll = collective_ms(torch, mesh, dev)
+    # per call: 11a / 11n sync 5 all_reduce + 2 all_gather, then one
+    # all_to_all (two with the 40 Msps front end; the 11b path reshards
+    # the chips and the correlation: two)
+    counts = {"rx_pipeline_sharded": (5, 2, 1),
+              "rx_pipeline_sharded_auto": (5, 2, 1),
+              "rx_pipeline_sharded_auto 40m": (5, 2, 2),
+              "rx_pipeline_sharded_11n MCS 15": (5, 2, 1),
+              "rx_pipeline_sharded_11n_auto": (5, 2, 1),
+              "rx_pipeline_sharded_11b": (0, 0, 2)}
+    per = list(coll.values())
+    for name, n in counts.items():
+        res[name]["collectives"] = list(n)
+        res[name]["collective_ms"] = sum(a * b for a, b in zip(n, per))
+    print("size-1 NCCL collectives (events, 100 calls): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in coll.items()) + "; per call: "
+        + ", ".join(f"{k} {res[k]['collective_ms']:.3f} ms"
+                    for k in counts), flush=True)
+    return {"mesh": list(mesh.mesh.shape), "paths": res,
+            "collectives_ms": coll}
+
+
+def capture_stdout(fn):
+    """(fn's return value, its standard output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    return rc, buf.getvalue()
+
+
+def tvws_phase(torch, dev, vc) -> dict:
+    """Phase 23: ``apps.tvws`` at its CLI defaults on the card (8 frames
+    over two 20 MHz channels of a 40 Msps band): exit 0, 8/8 frames, one
+    kernel launch per ``decode_band``; then ``decode_band`` on the card
+    and on the CPU, frame for frame."""
+    from sora_tpu_torch.apps import tvws
+
+    calls = []
+    orig = tvws.decode_band
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    tvws.decode_band = counted
+    try:
+        vc.LAUNCHES = 0
+        rc, out = capture_stdout(lambda: tvws.main(list(TVWS_ARGS)))
+        launches = vc.LAUNCHES
+    finally:
+        tvws.decode_band = orig
+    last = out.strip().splitlines()[-1]
+    print(f"apps.tvws {' '.join(TVWS_ARGS)}: rc {rc}, '{last}', kernel "
+          f"launches {launches} in {len(calls)} decode_band calls",
+          flush=True)
+    if rc != 0 or "decoded 8/8" not in last or launches != len(calls):
+        raise AssertionError("apps.tvws failed")
+    offs = [-10e6, 10e6]
+    x, _ = tvws.synth_band(8, offs, 40e6)
+    card = tvws.decode_band(x, offs, 40e6)
+    cpu = tvws.decode_band(x, offs, 40e6, device="cpu")
+    if len(card) != 8 or [{k: f[k] for k in f if k != "snr_db"}
+                          for f in card] != [{k: f[k] for k in f
+                                              if k != "snr_db"}
+                                             for f in cpu]:
+        raise AssertionError("tvws: card and CPU frames differ")
+    snr = max(abs(a["snr_db"] - b["snr_db"]) for a, b in zip(card, cpu))
+    if snr > 0.05:
+        raise AssertionError(f"tvws: snr differs by {snr}")
+    print(f"tvws decode_band: card and CPU agree on all {len(card)} frames "
+          f"(channel, rate, length, psdu; snr within {snr:.1e} dB)",
+          flush=True)
+    return {"rc": rc, "frames": len(card), "launches": launches,
+            "decode_band_calls": len(calls)}
+
+
+def sniffer_phase(torch, vc) -> dict:
+    """Phase 24: ``apps.sniffer`` in-process on the card: 32 mixed-rate
+    synthetic frames to a pcap that reads back equal to the logged frames,
+    then the 40 Msps capture replayed for 3 s."""
+    import tempfile
+
+    from sora_tpu_torch.apps import sniffer as sn
+
+    made = []
+
+    class Spy(sn.Sniffer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    orig = sn.Sniffer
+    sn.Sniffer = Spy
+    res = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            pcap = str(Path(d) / "sniff.pcap")
+            vc.LAUNCHES = 0
+            rc, _ = capture_stdout(lambda: sn.main(
+                ["--synthetic", "32", "--mixed", "--pcap", pcap]))
+            frames = [m["psdu"] for m in made[-1].frames]
+            back = [f for _, f in sn.read_pcap(pcap)]
+            # one launch for the warm-up, then one per decoded batch
+            batches = made[-1].node.stats.decoded_batches
+            launches = launched(vc, "apps.sniffer --synthetic",
+                                1 + batches)
+            res["synthetic"] = {"rc": rc, "frames": len(frames),
+                                "launches": launches}
+            print(f"apps.sniffer --synthetic 32 --mixed --pcap: rc {rc}, "
+                  f"frames {len(frames)} ({dict(made[-1].hist)}), pcap "
+                  f"{len(back)} records equal to the logged frames "
+                  f"{back == frames}, kernel launches {launches} (1 "
+                  f"warm-up + {batches} decoded batches)", flush=True)
+            if rc != 0 or not frames or back != frames:
+                raise AssertionError("apps.sniffer synthetic run failed")
+        vc.LAUNCHES = 0
+        rc, _ = capture_stdout(lambda: sn.main(
+            ["--dump", str(CAPTURE), "--seconds", "3"]))
+        n = sum(made[-1].hist.values())
+        batches = made[-1].node.stats.decoded_batches
+        launches = launched(vc, "apps.sniffer --dump", 1 + batches)
+        res["dump"] = {"rc": rc, "frames": n, "launches": launches}
+        print(f"apps.sniffer --dump {CAPTURE.name} --seconds 3: rc {rc}, "
+              f"frames {n}, kernel launches {launches} (1 warm-up + "
+              f"{batches} decoded batches)", flush=True)
+        if rc != 0 or n == 0:
+            raise AssertionError("apps.sniffer dump replay failed")
+    finally:
+        sn.Sniffer = orig
+    return res
+
+
+def demod11_phase(torch, vc) -> dict:
+    """Phase 25: ``apps.demod11`` on the card: mod then demod through the
+    torch chain for 11a (54 Mbps), 11b (11 Mbps) and 11n (MCS 15, two
+    dumps); the raw 40 Msps capture through the device front end; the ACK
+    of the port's TX against the golden model."""
+    import tempfile
+
+    from sora_tpu_torch.apps import demod11
+
+    runs = {}
+    # the Viterbi decodes one 11a frame in one launch, one 11n frame in
+    # two (HT-SIG and data); 11b and the TX-only ACK launch nothing
+    want = {"11a round trip": 1, "11b round trip": 0, "11n round trip": 2,
+            "raw 40 Msps": 1, "ack 24": 0}
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "w.dmp")
+        for std, rate in (("11a", "54"), ("11b", "11"), ("11n", "15")):
+            rc_mod, _ = capture_stdout(lambda: demod11.main(
+                ["--std", std, "--mode", "mod", "--rate", rate, "--outfile",
+                 out]))
+            files = [out + ".s0", out + ".s1"] if std == "11n" else [out]
+            vc.LAUNCHES = 0
+            rc, text = capture_stdout(lambda: demod11.main(
+                ["--std", std, "--mode", "demod", "--chain", "torch",
+                 "--msps", "20"] + [a for f in files
+                                    for a in ("--infile", f)]))
+            runs[f"{std} round trip"] = {"rc": rc_mod or rc,
+                                         "launches": vc.LAUNCHES,
+                                         "line": text.splitlines()[0]}
+    vc.LAUNCHES = 0
+    rc, text = capture_stdout(lambda: demod11.main(
+        ["--mode", "demod", "--chain", "torch", "--infile", str(CAPTURE),
+         "--msps", "40"]))
+    runs["raw 40 Msps"] = {"rc": rc, "launches": vc.LAUNCHES,
+                           "line": text.splitlines()[0]}
+    vc.LAUNCHES = 0
+    rc, text = capture_stdout(lambda: demod11.main(["--mode", "ack",
+                                                    "--rate", "24"]))
+    runs["ack 24"] = {"rc": rc, "launches": vc.LAUNCHES,
+                      "line": text.strip()}
+    for name, r in runs.items():
+        print(f"apps.demod11 {name}: rc {r['rc']}, kernel launches "
+              f"{r['launches']} (expected {want[name]}): {r['line']}",
+              flush=True)
+    if any(r["rc"] for r in runs.values()) or \
+            not runs["ack 24"]["line"].endswith("-> MATCH"):
+        raise AssertionError("apps.demod11 failed")
+    bad = {k: r["launches"] for k, r in runs.items()
+           if r["launches"] != want[k]}
+    if bad:
+        raise AssertionError(f"apps.demod11 kernel launches {bad}, "
+                             f"expected {want}")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -1943,8 +2334,8 @@ def main() -> int:
     paths = {"rx_pipeline": launches}
     mixed = tx_and_mixed_phase(torch, dev, rx, vc, parity)
     paths["rx_pipeline_auto"] = mixed.pop("launches")
-    paths["rx_pipeline 40m"] = frontend_phase(torch, dev, rx, vc,
-                                              host["psdu"][0])
+    paths["rx_pipeline 40m"], x40 = frontend_phase(torch, dev, rx, vc,
+                                                   host["psdu"][0])
 
     # ---- 8-9. the device-resident air ----------------------------------------
     soak = soak_phase(torch, vc, parity, int32_ops_per_s, card)
@@ -1987,6 +2378,25 @@ def main() -> int:
     b11_node = b11_node_phase(torch, dev, vc, card)
     paths["11b node"] = b11_node["launches"]
 
+    # ---- 22. the sharded receivers on a (1, 1) NCCL mesh -------------------
+    shard = sharded_phase(torch, dev, vc, parity, {
+        "a": xd, "auto": mixed.pop("x"), "40m": x40, "n15": ht15.pop("x"),
+        "nauto": ht_auto.pop("x"), "b": b11.pop("x")})
+    for name, r in shard["paths"].items():
+        paths[name] = r["launches"]
+    for d in (ht7, ht_auto1):
+        d.pop("x")
+
+    # ---- 23-25. the tvws, sniffer and demod11 apps -------------------------
+    tv = tvws_phase(torch, dev, vc)
+    paths["apps.tvws"] = tv["launches"]
+    sniff = sniffer_phase(torch, vc)
+    paths["apps.sniffer synthetic"] = sniff["synthetic"]["launches"]
+    paths["apps.sniffer dump"] = sniff["dump"]["launches"]
+    dm = demod11_phase(torch, vc)
+    for name, r in dm.items():
+        paths[f"apps.demod11 {name}"] = r["launches"]
+
     ht_shapes = [
         {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
          "launches_per_call": 1},
@@ -2025,7 +2435,8 @@ def main() -> int:
                "dot11b": {"tx": b11_tx, "batch": b11,
                           "soak": b11_soak["result"],
                           "soak_round": b11_soak["round"], "node": b11_node},
-               "kernel_launches_by_path": paths}
+               "sharded": shard, "tvws": tv, "sniffer": sniff,
+               "demod11": dm, "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
@@ -2045,8 +2456,11 @@ def main() -> int:
         "soak_launches_per_round": soak["launches_per_round"],
         "node_launches_per_batch":
             node["launches"] / node["decoded_batches"],
-        "ht_shapes": ht_shapes}]}
+        "ht_shapes": ht_shapes,
+        "sharded_launches_per_call": {
+            name: r["launches"] for name, r in shard["paths"].items()}}]}
     print(json.dumps(kernels), flush=True)
+    torch.distributed.destroy_process_group()
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Sora dump-file reader (numpy; the port's own copy of
-``sora_tpu.io.dumpfile``'s loader).
+"""Sora dump-file I/O (numpy; the port's own copy of
+``sora_tpu.io.dumpfile``).
 
 A Sora dump file is an image of the RX DMA ring: a sequence of 128-byte
 blocks, each a 16-byte slot descriptor followed by 28 COMPLEX16 samples
@@ -43,3 +43,34 @@ def load_dump(path: str, sign_extend_14bit: bool = True) -> np.ndarray:
     if sign_extend_14bit:
         iq = ((iq & 0x3FFF) ^ 0x2000) - 0x2000
     return (iq[:, 0] + 1j * iq[:, 1]).astype(np.complex64)
+
+
+def save_dump(path: str, samples: np.ndarray, bits: int = 16) -> int:
+    """Write samples as a Sora dump file (inverse of :func:`load_dump`).
+
+    Pads the tail with zeros to a whole 28-sample block.  Descriptors are
+    written as the reference RX ring does: ``01 00 70 00`` (valid flag +
+    0x70 = 112 payload bytes) followed by zeros.
+
+    ``bits=14`` stores the low 14 bits without sign extension (the RCB ADC
+    format); ``bits=16`` stores full int16.  Returns the number of samples
+    written (including padding).
+    """
+    x = np.asarray(samples)
+    n = len(x)
+    npad = (-n) % SAMPLES_PER_BLOCK
+    re = np.concatenate([np.real(x), np.zeros(npad)])
+    im = np.concatenate([np.imag(x), np.zeros(npad)])
+    iq = np.stack([re, im], axis=-1)
+    lim = (1 << (bits - 1)) - 1
+    iq = np.clip(np.round(iq), -lim - 1, lim).astype(np.int64)
+    if bits == 14:
+        iq = iq & 0x3FFF
+    iq = iq.astype("<i2")
+    nblocks = (n + npad) // SAMPLES_PER_BLOCK
+    out = np.zeros((nblocks, BLOCK_BYTES), dtype=np.uint8)
+    out[:, 0] = 0x01
+    out[:, 2] = 0x70
+    out[:, DESC_BYTES:] = iq.reshape(nblocks, -1).view(np.uint8)
+    out.tofile(path)
+    return n + npad

@@ -7,6 +7,8 @@ stream equals the JAX app's (golden-model frames) within 1e-5 for phy
 CLI and the soak tool run end to end with ``--device cpu``.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -96,7 +98,9 @@ def test_node_app_decodes_synthetic_traffic(capsys):
 
 class _PassClock:
     """The app's clock for its run loop, advancing 1 ms a reading: the
-    loop makes the same number of passes however loaded the machine is."""
+    loop makes the same number of passes however loaded the machine is.
+    An idle pass still sleeps for real, so the ring's replay thread gets
+    the core while the loop waits for samples."""
 
     def __init__(self):
         self.t = 0.0
@@ -106,7 +110,7 @@ class _PassClock:
         return self.t
 
     def sleep(self, seconds):
-        pass
+        time.sleep(seconds)
 
 
 def test_node_app_phy_n_decodes_mixed_mcs(capsys, monkeypatch):

@@ -1,10 +1,13 @@
 """sora_tpu_torch stands alone and never runs quietly on the CPU.
 
-* Importing every module of the package pulls in neither JAX nor any
-  module of the JAX package ``sora_tpu`` (checked in a fresh process).
-* No source of the package, nor chip_smoke.py, imports them.
+* Importing every module of the package — the sharding layer, the
+  golden-model copies, the apps and the tools among them — pulls in
+  neither JAX nor any module of the JAX package ``sora_tpu`` (checked in
+  a fresh process).
+* No source of the package, nor chip_smoke.py, nor the program the
+  sharding tests run as gloo ranks, imports them.
 * Entry points that take host data default to CUDA and raise without it;
-  the bench tool exits nonzero.
+  the bench and scaling tools exit nonzero.
 * The kernel module imports without nvcc, and a build without nvcc raises.
 * The native ring library builds only at first use, never on import, and
   a build without g++ raises.
@@ -23,11 +26,14 @@ import torch
 
 import sora_tpu_torch
 from sora_tpu_torch.ops import viterbi_cuda as vc
+from sora_tpu_torch.apps import demod11, sniffer, tvws
 from sora_tpu_torch.apps import node as tapp
+from sora_tpu_torch.parallel import distributed as pdist
+from sora_tpu_torch.parallel import shard as psh
 from sora_tpu_torch.phy.dot11a import rx as trx
 from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11n import rx as nrx
-from sora_tpu_torch.tools import bench
+from sora_tpu_torch.tools import bench, scaling_bench
 from sora_tpu_torch.runtime import device_air, native, node, radio
 from sora_tpu_torch.util import xfer
 
@@ -64,13 +70,19 @@ def test_package_imports_no_jax_nor_sora_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) == len(_modules()) >= 48
+    assert int(n) == len(_modules()) >= 63
+    for name in ("parallel.shard", "parallel.distributed", "golden.dot11a_np",
+                 "golden.dot11b_np", "golden.dot11n_np", "apps.tvws",
+                 "apps.sniffer", "apps.demod11", "tools.multihost_worker",
+                 "tools.scaling_bench"):
+        assert f"sora_tpu_torch.{name}" in _modules()
     assert bad.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
-                                        ROOT / "chip_smoke.py"]))
+    str(p.relative_to(ROOT)) for p in [
+        *PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+        ROOT / "tests" / "torch_shard_ranks.py"]))
 def test_source_has_no_jax_or_sora_tpu_import(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
@@ -126,6 +138,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     ring_b.close()
     # the bench tool exits nonzero and prints no result
     assert bench.main() == 1
+    assert scaling_bench.main(["--cuda-sharded"]) == 1
     ring = native.RxRing(capacity=1 << 12)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1))
@@ -146,6 +159,46 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert node.StreamingNode(ring, node.NodeConfig(max_psdu=64, batch=1),
                               device="cpu").device.type == "cpu"
     ring.close()
+
+
+def test_sharding_and_apps_raise_without_cuda(monkeypatch, tmp_path):
+    """make_mesh, the sharded pipelines, the three apps and the
+    multi-process helpers need CUDA unless the caller names the CPU; no
+    process group is brought up on the way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((2, 1024), np.complex64)
+    for call in (lambda: psh.make_mesh(),
+                 lambda: psh.make_mesh(1),
+                 lambda: pdist.initialize("127.0.0.1:1", 1, 0),
+                 lambda: tvws.decode_band(x[0], [-10e6, 10e6], 40e6),
+                 lambda: tvws.synth_band(2, [0.0], 20e6),
+                 lambda: demod11.main(["--mode", "ack"]),
+                 lambda: demod11.main(["--mode", "demod", "--chain",
+                                       "torch"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for fn in (psh.rx_pipeline_sharded, psh.rx_pipeline_sharded_11n):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(x, None, 12)
+    for fn in (psh.rx_pipeline_sharded_auto, psh.rx_pipeline_sharded_11n_auto,
+               psh.rx_pipeline_sharded_11b, psh.synchronize_sharded,
+               psh.synchronize_sharded_11n):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(x, None)
+    ring = native.RxRing(capacity=1 << 12)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sniffer.Sniffer(ring, node.NodeConfig(max_psdu=64, batch=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sniffer.main(["--synthetic", "2"])
+    sn = sniffer.Sniffer(ring, node.NodeConfig(max_psdu=64, batch=1),
+                         pcap_path=str(tmp_path / "c.pcap"), device="cpu")
+    assert sn.node.device.type == "cpu"
+    sn.close()
+    ring.close()
+    # the golden chain of the harness is numpy: no device needed
+    assert demod11.main(["--mode", "mod", "--outfile",
+                         str(tmp_path / "w.dmp")]) == 0
+    assert not torch.distributed.is_initialized()
 
 
 def test_kernel_module_imports_without_nvcc():
