@@ -137,13 +137,48 @@ Phases (any failure raises and the script exits nonzero):
    Mbps), 11b (11 Mbps) and 11n (MCS 15, two dumps), the raw 40 Msps
    capture through the device front end, and ``--mode ack --rate 24``
    MATCH; 1, 0, 2, 1 and 0 launches;
-26. a JSON line of the kernels, the card line, and as the last line
+26. the SDL layer (``sdl.py``): ``Signal`` through a 14- and a 16-bit
+   dump, ``resample`` 20 -> 40 -> 20 Msps on the card against the CPU
+   within 1e-5, ``spectrum`` and ``snr_db`` on a tone; ``Radio(phy="a")``
+   at the node width of phase 11 fed the most frames of the node app's
+   24 Mbps traffic (gap 900) that one write into its ring of 2^22 holds,
+   drained through ``rx``: crc_fail <= 2% and the data frames delivered
+   >= 98% of the K-frames-a-hop ceiling (K = 11 candidates a window bind
+   on this traffic, as they do in the JAX package's Radio:
+   tests/test_torch_sdl.py holds the two to one payload list there; the
+   node's frame_ok also counts the ACKs that its loopback sink writes
+   back, so it is not gated), one launch per decoded batch;
+   ``Radio(phy="n")`` on two rings at phase 16's node (4 launches per
+   batch) and ``Radio(phy="b")`` at phase 21's node with the largest
+   batch whose two spans fit the ring (0 launches), each delivering >= 98%
+   of its frames; the device-only ratio of each;
+   ``Radio.replay`` of the 40 Msps capture in the wire's units: crc_fail
+   0;
+27. ``apps.speanalyzer`` ``--tone 3.2e6 --msps 20 --trace`` and ``--dump``
+   of the capture: exit 0 with the CPU's peak, the trace read back by
+   ``apps.plotview``, ``welch_spectrum`` card against CPU within 0.01 dB
+   over the bins above peak - 80 dB, its time at 262144 samples, nfft
+   1024; 0 launches;
+28. ``apps.node --dump fsample54.dmp --msps 40`` for 3 s: the 64-QAM
+   frames decode with crc_fail 0; the same run on raw ADC counts (the JAX
+   app's replay) loses them to the CRC; 1 launch for the warm-up and 1
+   per decoded batch;
+29. the sensitivity sweep (``tools/sensitivity_sweep.py``) at its default
+   grid, all five sweeps: the tables, exactly 1 launch per 11a call, 2
+   per 11n call, 0 per 11b call; the kernel against its plain version on
+   the 11a 6 Mbps call at 3 dB; the 54 Mbps and MCS 15 rows frame for
+   frame against the CPU; the wall time; the kernel's time and bound at
+   the sweep's largest 11a and 11n shapes;
+30. ``tools.ping_over_air`` where the machine has root, /dev/net/tun and
+   iproute2's ``ip`` (exit 0, ``udp-echo-over-air OK``), else one line
+   saying why not;
+31. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
 and read just after, and fails if the kernel was not launched — or, for
-the 11b paths and the ACK, which reach no Viterbi, if it was launched at
-all.  It
+the 11b paths, the ACK and the spectrum analyzer, which reach no Viterbi,
+if it was launched at all.  It
 imports nothing of JAX or of the JAX package.
 """
 
@@ -197,7 +232,7 @@ B11_NODE_FRAMES, B11_NODE_RING = 400, 1 << 25
 PEAK_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 BOOST_SM_HZ = 1.98e9
-# int32 operations of one exact Viterbi window step: a radix-2
+# int32 operations of one decoded Viterbi step: a radix-2
 # add-compare-select per state (2 adds, 1 min) for 64 states
 ACS_OPS_PER_STEP = 64 * 3
 
@@ -303,16 +338,19 @@ def auto_window(T: int):
 
 def viterbi_bound(B: int, T: int, block: int, overlap: int,
                   int32_ops_per_s: float) -> dict:
-    """The least time of the decode: radix-2 ACS int32 operations of every
-    window step at the int32 issue rate, or the bytes (fp32 soft in, uint8
-    bits out) at the HBM rate, whichever is larger."""
+    """The least time of the decode: radix-2 ACS int32 operations of the
+    B * T steps that the decode needs at the int32 issue rate, or the bytes
+    (fp32 soft in, uint8 bits out) at the HBM rate, whichever is larger.
+    ``window_steps`` is what the block-parallel windows run: the last
+    block padded to a whole one, plus an overlap on each side."""
     nwin = B * (-(-T // block))
     win = block + 2 * overlap
-    ops = nwin * win * ACS_OPS_PER_STEP
+    ops = B * T * ACS_OPS_PER_STEP
     nbytes = B * T * 2 * 4 + B * T
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / int32_ops_per_s * 1e3
     return {"ops": ops, "ops_radix4": nwin * (win // 4) * 1024 * 3,
+            "window_steps": nwin * win, "steps": B * T,
             "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
@@ -330,7 +368,7 @@ def kernel_timing(vc, ab, int32_ops_per_s, plain_reps: int = 1) -> dict:
     return {"shape": [B, T], "block": block, "overlap": overlap, "ms": ms,
             "plain_ms": plain, **{k: bnd[k] for k in (
                 "bound_ms", "bound_by", "ops", "ops_ms", "bytes",
-                "bytes_ms")}}
+                "bytes_ms", "steps", "window_steps")}}
 
 
 def print_kernel(name: str, k: dict) -> None:
@@ -342,7 +380,9 @@ def print_kernel(name: str, k: dict) -> None:
           f"({k['bound_by']}: {k['ops'] / 1e9:.4f} G int32 ops = "
           f"{k['ops_ms']:.4f} ms; {k['bytes'] / 1e6:.2f} MB = "
           f"{k['bytes_ms']:.4f} ms); time/bound "
-          f"{k['ms'] / k['bound_ms']:.2f}", flush=True)
+          f"{k['ms'] / k['bound_ms']:.2f}; the windows run "
+          f"{k['window_steps'] / k['steps']:.3f}x the {k['steps']} steps "
+          "the decode needs", flush=True)
 
 
 @contextmanager
@@ -2139,6 +2179,517 @@ def demod11_phase(torch, vc) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the SDL layer, the last apps and tools (phases 26-30)
+# ---------------------------------------------------------------------------
+
+# sdl.Radio's rings have the fixed capacity of sora_tpu/sdl.py:124; its node
+# at the node app's width as phase 11 runs it, 11n as phase 16, 11b as
+# phase 21 but at the largest batch whose two spans fit in one ring
+RADIO_RING = 1 << 22
+RADIO_RX_SECONDS = 120.0  # rx's wall-clock bound: the ring drains long before
+RESAMPLE_ATOL = 1e-5      # Signal.resample, card against CPU (unit tone)
+SPE_DB_ATOL = 0.01        # welch_spectrum card against CPU, dB, over the
+#                           bins above peak - 80 dB (float32 FFTs)
+SPE_TONE = ("--tone", "3.2e6", "--msps", "20")
+NODE_DUMP_ARGS = ("--dump", str(CAPTURE), "--msps", "40", "--seconds", "3")
+# each sweep at the tool's default grid and its Viterbi launches per
+# receiver call; the calls themselves are counted as the sweep runs
+SWEEPS = (("11a", "sweep_11a", "SNRS_A", 1),
+          ("11b", "sweep_11b", "SNRS_B", 0),
+          ("11n", "sweep_11n", "SNRS_N", 2),
+          ("11a multipath", "sweep_11a_multipath", "SNRS_AM", 1),
+          ("11n mixed", "sweep_11n_mixed", "SNRS_NM", 2))
+# the receiver entry points the sweeps call, by module of the port
+SWEEP_RECEIVERS = (("phy.dot11a.rx", ("rx_pipeline", "decode_data")),
+                   ("phy.dot11b.rx", ("rx_pipeline_auto",)),
+                   ("phy.dot11n.rx", ("rx_pipeline", "rx_pipeline_1ss")))
+
+
+def status_count(out: str, key: str) -> int:
+    """A counter of the node's status page in ``out``."""
+    import re
+
+    return int(re.search(rf"\b{key}\s+(\d+)", out).group(1))
+
+
+def radio_run(torch, vc, phy: str, src: np.ndarray, what: str, **kw) -> dict:
+    """``sdl.Radio(phy)`` on the card: ``src`` injected in one write, then
+    ``rx`` until the ring drains; the delivered payloads, the counters,
+    the kernel launches of that run, frames/s, and the device-only ratio
+    of one batch of ``src`` (detect + decode, CUDA events, over its air)."""
+    from sora_tpu_torch.sdl import Radio
+    from sora_tpu_torch.util.xfer import device_complex8, device_complex16
+
+    with Radio(phy=phy, **kw) as r:
+        node, cfg = r.node, r.node.cfg
+        hop = cfg.window - cfg.overlap
+        span = cfg.window + hop * (cfg.batch - 1)
+        if src.shape[-1] > RADIO_RING:
+            raise AssertionError(f"{what}: {src.shape[-1]} samples do not "
+                                 "fit one write into the ring")
+        torch.cuda.synchronize()
+        vc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r.inject(src)
+        got = list(r.rx(seconds=RADIO_RX_SECONDS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, st = vc.LAUNCHES, r.stats
+        wins = np.stack([src[..., i * hop: i * hop + cfg.window]
+                         for i in range(cfg.batch)])
+        wire = device_complex8 if cfg.wire == "i8" else device_complex16
+        xd = wire(wins, node.device)
+        issue = lambda: (node._detect(xd), node._decode(xd))
+        issue()
+        dev_ms = cuda_ms(issue, 10)
+    air_s = span / cfg.sample_rate_sps
+    res = {"window": cfg.window, "overlap": cfg.overlap, "batch": cfg.batch,
+           "wire": cfg.wire, "samples": int(src.shape[-1]),
+           "delivered": len(got), "frame_ok": st.frame_ok,
+           "crc_fail": st.crc_fail, "plcp_fail": st.plcp_fail,
+           "dup": st.dup, "acks_tx": st.acks_tx,
+           "decoded_batches": st.decoded_batches, "launches": launches,
+           "wall_s": wall, "frames_per_s": len(got) / wall,
+           "device_only_ms": dev_ms, "air_ms_per_batch": air_s * 1e3,
+           "device_only_ratio": dev_ms / 1e3 / air_s}
+    print(f"{what}: window {cfg.window} overlap {cfg.overlap} batch "
+          f"{cfg.batch} ({cfg.wire} wire), {res['samples']} samples in one "
+          f"write; delivered {len(got)}, frame_ok {st.frame_ok}, crc_fail "
+          f"{st.crc_fail}, plcp_fail {st.plcp_fail}, dup {st.dup}, acks "
+          f"{st.acks_tx}; decoded batches {st.decoded_batches}, kernel "
+          f"launches {launches}; {wall:.2f} s wall, "
+          f"{res['frames_per_s']:.0f} frames/s; device-only {dev_ms:.3f} ms "
+          f"per batch over {air_s * 1e3:.2f} ms of air: ratio "
+          f"{res['device_only_ratio']:.4f}", flush=True)
+    return res
+
+
+def most_frames(make, cycle: int) -> tuple:
+    """The most frames of ``make(n)`` traffic that one write into the
+    Radio's ring holds, and that traffic.  Mixed traffic cycles over
+    ``cycle`` rates whose frames differ in length."""
+    one = make(1).shape[-1]
+    per = (make(1 + cycle).shape[-1] - one) / cycle
+    n = int((RADIO_RING - one) / per) + 1
+    src = make(n)
+    while src.shape[-1] > RADIO_RING:
+        n -= max(1, int((src.shape[-1] - RADIO_RING) / per))
+        src = make(n)
+    return n, src
+
+
+def sdl_phase(torch, dev, vc) -> dict:
+    """Phase 26: the SDL layer on the card.  ``Signal``: 14- and 16-bit dump
+    round trips, ``resample`` 20 -> 40 -> 20 Msps card against CPU,
+    ``spectrum`` and ``snr_db`` on a tone.  ``Radio`` phy "a" at the node
+    app's width, "n" on two rings, "b" at the largest batch whose two
+    spans fit the ring, each fed the most frames of the node app's
+    synthetic traffic that one write into the ring holds; ``replay`` of
+    the 40 Msps capture."""
+    import tempfile
+
+    from sora_tpu_torch.apps.node import synthetic_traffic
+    from sora_tpu_torch.runtime.node import NodeConfig
+    from sora_tpu_torch.sdl import RadioConfig, Radio, Signal
+
+    res = {}
+    # ---- Signal ------------------------------------------------------------
+    rng = np.random.default_rng(26)
+    x = ((rng.normal(size=8192) + 1j * rng.normal(size=8192)) * 0.3
+         ).astype(np.complex64)
+    corr = {}
+    with tempfile.TemporaryDirectory() as d:
+        for bits in (14, 16):
+            path = str(Path(d) / f"sig{bits}.dmp")
+            Signal(x, 40e6).to_dump(path, bits=bits)
+            back = Signal.from_dump(path, 40e6).samples[: len(x)]
+            corr[bits] = float(abs(np.vdot(back, x)) / (
+                np.linalg.norm(back) * np.linalg.norm(x)))
+    tone = Signal((np.exp(2j * np.pi * 2e6 / 20e6 * np.arange(65536))
+                   + 0.003 * (rng.normal(size=65536)
+                              + 1j * rng.normal(size=65536))
+                   ).astype(np.complex64), 20e6)
+    vc.LAUNCHES = 0
+    up = tone.resample(40e6)
+    down = up.resample(20e6)
+    up_h = tone.resample(40e6, device="cpu")
+    down_h = up_h.resample(20e6, device="cpu")
+    err = max(float(np.abs(up.samples - up_h.samples).max()),
+              float(np.abs(down.samples - down_h.samples).max()))
+    f, p = up.spectrum(1024)
+    peak_hz, snr = float(f[int(np.argmax(p))]), tone.snr_db()
+    no_launch(vc, "Signal")
+    print(f"Signal: 14/16-bit dump round trips correlate "
+          f"{corr[14]:.6f}/{corr[16]:.6f}; resample 20 -> 40 -> 20 Msps "
+          f"on the card against the CPU within {err:.2e} (tolerance "
+          f"{RESAMPLE_ATOL:g}); spectrum peak {peak_hz / 1e6:+.3f} MHz, "
+          f"snr_db {snr:.1f}", flush=True)
+    if (min(corr.values()) < 0.9999 or err > RESAMPLE_ATOL
+            or len(down) != len(tone) or abs(peak_hz - 2e6) > 1e5
+            or snr < 30):
+        raise AssertionError("Signal on the card failed")
+    res["signal"] = {"dump_corr": corr, "resample_err": err,
+                     "peak_hz": peak_hz, "snr_db": snr}
+
+    # ---- Radio phy "a": the node app's width, one write of traffic ------
+    n, src = most_frames(lambda k: synthetic_traffic(
+        k, NODE_ADDR, mixed=False, rate=24, gap=900, device=dev), 1)
+    a = radio_run(torch, vc, "a", src, f"Radio(phy='a') {n} frames",
+                  device=dev, addr=NODE_ADDR, **NODE_CFG)
+    if a["launches"] != a["decoded_batches"] or not a["launches"]:
+        raise AssertionError("Radio(phy='a'): launches != decoded batches")
+    # frame_ok counts every FCS-clean frame, the ACKs that the loopback
+    # sink writes back into the ring among them, so the gate reads the data
+    # frames delivered.  The node decodes at most K candidates a window and
+    # advances a hop a window, so it can deliver at most K frames a hop:
+    # K * period / hop of this traffic (the JAX Radio loses the same frames
+    # where K binds: tests/test_torch_sdl.py)
+    K = NODE_CFG["max_frames_per_window"]
+    hop = a["window"] - a["overlap"]
+    cap = min(1.0, K * src.shape[-1] / n / hop)
+    print(f"Radio(phy='a'): delivered {a['delivered']} of {n} data frames "
+          f"({a['delivered'] / n:.4f}); at most K = {K} frames a hop of "
+          f"{hop} samples, a frame every {src.shape[-1] / n:.1f}: "
+          f"{cap:.4f} of them", flush=True)
+    if a["crc_fail"] > 0.02 * n or a["delivered"] < 0.98 * cap * n:
+        raise AssertionError(f"Radio(phy='a'): frame_ok {a['frame_ok']}, "
+                             f"delivered {a['delivered']}, crc_fail "
+                             f"{a['crc_fail']} of {n} frames")
+    a["k_cap"] = cap
+    res["a"] = dict(a, frames=n)
+
+    # ---- Radio phy "n": two rings ------------------------------------------
+    hcfg = NodeConfig(addr=NODE_ADDR, **HT_NODE_CFG)
+    hop = hcfg.window - hcfg.overlap
+    n, src = most_frames(lambda k: synthetic_traffic(
+        k, NODE_ADDR, mixed=True, rate=8, gap=hop, phy="n", device=dev), 8)
+    nn = radio_run(torch, vc, "n", src, f"Radio(phy='n') {n} frames",
+                   device=dev, addr=NODE_ADDR, **{
+                       k: v for k, v in HT_NODE_CFG.items() if k != "phy"})
+    if nn["launches"] != 4 * nn["decoded_batches"] or not nn["launches"]:
+        raise AssertionError("Radio(phy='n'): launches != 4 per batch")
+    if nn["delivered"] < 0.98 * n:
+        raise AssertionError(f"Radio(phy='n') decoded {nn['delivered']} of "
+                             f"{n} frames")
+    res["n"] = dict(nn, frames=n)
+
+    # ---- Radio phy "b": the largest batch whose two spans fit -----------
+    bkw = {k: v for k, v in B11_NODE_CFG.items()
+           if k not in ("phy", "sample_rate_sps")}
+    bcfg = NodeConfig(addr=NODE_ADDR, **B11_NODE_CFG)
+    hop = bcfg.window - bcfg.overlap
+    batch = min(bcfg.batch, (RADIO_RING // 2 - bcfg.window) // hop + 1)
+    print(f"Radio(phy='b'): batch {batch} (the app's {bcfg.batch} spans "
+          f"{bcfg.window + hop * (bcfg.batch - 1)} chips; two spans of "
+          f"{batch} fit the ring of {RADIO_RING})", flush=True)
+    bkw["batch"] = batch
+    n, src = most_frames(lambda k: synthetic_traffic(
+        k, NODE_ADDR, mixed=True, rate=2, gap=hop, phy="b", device=dev), 4)
+    b = radio_run(torch, vc, "b", src, f"Radio(phy='b') {n} frames",
+                  device=dev, addr=NODE_ADDR,
+                  radio=RadioConfig(sample_rate=11e6), **bkw)
+    if b["launches"]:
+        raise AssertionError("Radio(phy='b') launched the kernel")
+    if b["delivered"] < 0.98 * n:
+        raise AssertionError(f"Radio(phy='b') decoded {b['delivered']} of "
+                             f"{n} frames")
+    res["b"] = dict(b, frames=n, app_batch=bcfg.batch)
+
+    # ---- Radio.replay of the 40 Msps capture, in the wire's units -------
+    with Radio(phy="a", device=dev, radio=RadioConfig(sample_rate=40e6),
+               input_rate="40m", max_psdu=1600, min_rate_mbps=6,
+               batch=4) as r:
+        torch.cuda.synchronize()
+        vc.LAUNCHES = 0
+        r.replay(str(CAPTURE))
+        got = list(r.rx(seconds=RADIO_RX_SECONDS))
+        torch.cuda.synchronize()
+        st = r.stats
+        launches = launched(vc, "Radio.replay", st.decoded_batches)
+    print(f"Radio.replay({CAPTURE.name}, paced at 40 Msps): delivered "
+          f"{len(got)}, frame_ok {st.frame_ok}, crc_fail {st.crc_fail}; "
+          f"decoded batches {st.decoded_batches}, kernel launches "
+          f"{launches}", flush=True)
+    if st.frame_ok == 0 or st.crc_fail:
+        raise AssertionError("Radio.replay of the capture failed")
+    res["replay"] = {"delivered": len(got), "frame_ok": st.frame_ok,
+                     "crc_fail": st.crc_fail,
+                     "decoded_batches": st.decoded_batches,
+                     "launches": launches}
+    return res
+
+
+def speanalyzer_phase(torch, dev, vc) -> dict:
+    """Phase 27: ``apps.speanalyzer`` on the card: the tone and the capture
+    through the CLI (exit 0, the peak where the CPU finds it), the trace
+    read back by ``apps.plotview``, ``welch_spectrum`` card against CPU,
+    and its time at 262144 samples, nfft 1024."""
+    import re
+    import tempfile
+
+    from sora_tpu_torch.apps import plotview, speanalyzer
+    from sora_tpu_torch.io.dumpfile import load_dump
+
+    peak = lambda out: re.search(r"^peak .* @ ([+-][0-9.]+) MHz", out,
+                                 re.MULTILINE).group(1)
+    runs = {}
+    vc.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "spe.trace")
+        for name, args in (("tone", list(SPE_TONE) + ["--trace", path]),
+                           ("dump", ["--dump", str(CAPTURE)])):
+            rc, out = capture_stdout(lambda: speanalyzer.main(args))
+            rc_h, out_h = capture_stdout(lambda: speanalyzer.main(
+                [a for a in args if a != path and a != "--trace"]
+                + ["--device", "cpu"]))
+            runs[name] = {"rc": rc, "peak_mhz": peak(out),
+                          "cpu_peak_mhz": peak(out_h)}
+            print(f"apps.speanalyzer --{name}: rc {rc}, peak "
+                  f"{peak(out)} MHz (CPU {peak(out_h)} MHz)", flush=True)
+            if rc or rc_h or peak(out) != peak(out_h):
+                raise AssertionError(f"apps.speanalyzer --{name} failed")
+        rc, view = capture_stdout(lambda: plotview.main([path]))
+    if rc or "== spectrum [spectrum] ==" not in view:
+        raise AssertionError("apps.plotview did not read the trace")
+    print(f"apps.plotview of the --trace file: rc {rc}, "
+          f"{len(view.splitlines())} lines", flush=True)
+    t = np.arange(262144)
+    tone = np.exp(2j * np.pi * 3.2e6 / 20e6 * t).astype(np.complex64)
+    tone += (np.random.default_rng(0).normal(size=len(t))
+             + 1j * np.random.default_rng(1).normal(size=len(t))
+             ).astype(np.complex64) * 0.01
+    cap = load_dump(str(CAPTURE))
+    errs = {}
+    for name, x, fs in (("tone", tone, 20e6), ("capture", cap - cap.mean(),
+                                               40e6)):
+        _, p = speanalyzer.welch_spectrum(x, 1024, fs, device=dev)
+        _, p_h = speanalyzer.welch_spectrum(x, 1024, fs, device="cpu")
+        live = p_h > p_h.max() - 80.0
+        errs[name] = float(np.abs(p - p_h)[live].max())
+        if errs[name] > SPE_DB_ATOL or np.argmax(p) != np.argmax(p_h):
+            raise AssertionError(f"welch_spectrum {name}: card and CPU "
+                                 f"differ by {errs[name]} dB")
+    launches = no_launch(vc, "apps.speanalyzer")
+    call = lambda: speanalyzer.welch_spectrum(tone, 1024, 20e6, device=dev)
+    for _ in range(3):
+        call()
+    ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        call()                      # host array in, host array out
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(ms))
+    seg = torch.as_tensor(tone.reshape(-1, 1024), device=dev)
+    fft_ms = cuda_ms(lambda: torch.fft.fft(seg, dim=-1), 50)
+    print(f"welch_spectrum card against CPU over the bins above peak - 80 "
+          f"dB: tone {errs['tone']:.2e} dB, capture {errs['capture']:.2e} "
+          f"dB (tolerance {SPE_DB_ATOL}), the same peak bin; kernel "
+          f"launches {launches}; 262144 samples, nfft 1024: {ms:.3f} ms a "
+          f"call (host clock, median of 20, host array in and out), the "
+          f"library FFT of its 256 segments {fft_ms:.4f} ms (events)",
+          flush=True)
+    return {"runs": runs, "card_cpu_db": errs, "launches": launches,
+            "welch_ms_262144_1024": ms, "fft_ms_256x1024": fft_ms}
+
+
+def node_dump_phase(torch, vc) -> dict:
+    """Phase 28: ``apps.node --dump fsample54.dmp --msps 40`` for 3 s on the
+    card: the capture's 64-QAM frames decode with crc_fail 0 (the replay
+    in the wire's units); the same run on raw ADC counts, as the JAX app
+    replays them, loses them to the CRC."""
+    from sora_tpu_torch.apps import node as appnode
+    from sora_tpu_torch.runtime import native
+
+    res = {}
+    orig = native.replay_samples
+    for name, replay in (("wire units", orig),
+                         ("raw counts", lambda p: native.parse_dump(p))):
+        native.replay_samples = replay
+        try:
+            vc.LAUNCHES = 0
+            rc, out = capture_stdout(lambda: appnode.main(
+                list(NODE_DUMP_ARGS)))
+        finally:
+            native.replay_samples = orig
+        r = {k: status_count(out, k) for k in ("frame_ok", "crc_fail",
+                                               "batches")}
+        # one launch for the node's warm-up, then one per decoded batch
+        r["launches"] = launched(vc, f"apps.node --dump ({name})",
+                                 1 + r["batches"])
+        r["rc"] = rc
+        res[name] = r
+        print(f"apps.node {' '.join(NODE_DUMP_ARGS)} ({name}): rc {rc}, "
+              f"frame_ok {r['frame_ok']}, crc_fail {r['crc_fail']}, decoded "
+              f"batches {r['batches']}, kernel launches {r['launches']}",
+              flush=True)
+    if res["wire units"]["frame_ok"] == 0 or res["wire units"]["crc_fail"]:
+        raise AssertionError("apps.node --dump lost the capture's frames")
+    if res["raw counts"]["crc_fail"] == 0:
+        raise AssertionError("the raw-count replay no longer clips")
+    return res
+
+
+@contextmanager
+def receiver_calls():
+    """Counts the outermost calls of the sweeps' receiver entry points
+    while it is open (a receiver that calls another, as ``rx_pipeline``
+    calls ``decode_data``, counts once), passing each call on."""
+    import importlib
+
+    count, depth, saved = [0], [0], []
+
+    def counted(orig):
+        def call(*args, **kwargs):
+            count[0] += depth[0] == 0
+            depth[0] += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return call
+
+    for mod_name, names in SWEEP_RECEIVERS:
+        mod = importlib.import_module(f"sora_tpu_torch.{mod_name}")
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, counted(getattr(mod, name)))
+    try:
+        yield count
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def sweep_rows(sw, rx_mod, fn, snrs, dev, **kw) -> list:
+    """Each receiver call's ok, length and PSDU of one sweep row."""
+    from sora_tpu_torch.util.xfer import fetch
+
+    recs = []
+    orig = rx_mod.rx_pipeline
+
+    def record(*a, **k):
+        out = orig(*a, **k)
+        recs.append(fetch({key: out[key] for key in ("ok", "length",
+                                                     "psdu")}))
+        return out
+
+    rx_mod.rx_pipeline = record
+    try:
+        fn(snrs, device=dev, **kw)
+    finally:
+        rx_mod.rx_pipeline = orig
+    return recs
+
+
+def sweep_phase(torch, dev, vc, parity, int32_ops_per_s) -> dict:
+    """Phase 29: the sensitivity sweep's default grid on the card (all five
+    sweeps): the tables, exactly 1 launch per 11a call, 2 per 11n call, 0
+    per 11b call; the kernel against its plain version on the 11a 6 Mbps
+    call at 3 dB (noisy soft values at the waterfall); the 54 Mbps and
+    MCS 15 rows frame for frame against the CPU; the sweep's wall time;
+    the kernel's time at the largest 11a and 11n shapes."""
+    from sora_tpu_torch.phy.dot11a import rx as arx
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+    from sora_tpu_torch.tools import sensitivity_sweep as sw
+
+    res, inputs = {}, {}
+    wall = 0.0
+    for name, fn, grid, per_call in SWEEPS:
+        snrs = getattr(sw, grid)
+        vc.LAUNCHES = 0
+        with viterbi_inputs() as seen, receiver_calls() as count:
+            t0 = time.perf_counter()
+            rows = getattr(sw, fn)(snrs, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        calls = count[0]
+        if not calls:
+            raise AssertionError(f"sweep {name} made no receiver call")
+        want = calls * per_call
+        if want:
+            launches = launched(vc, f"sweep {name}", want)
+        else:
+            launches = no_launch(vc, f"sweep {name}")
+        wall += dt
+        inputs[name] = seen
+        res[name] = {"calls": calls, "launches": launches, "wall_s": dt,
+                     "rows": {k: [[s, f, b] for s, f, b in v]
+                              for k, v in rows.items()}}
+        print(sw._table(f"{name} (card)", rows, snrs), flush=True)
+        print(f"sweep {name}: {calls} receiver calls counted, kernel "
+              f"launches {launches} ({launches / calls:g} per call), "
+              f"{dt:.2f} s", flush=True)
+    print(f"sensitivity sweep, default grid: {wall:.2f} s of wall time for "
+          f"{sum(r['calls'] for r in res.values())} receiver calls",
+          flush=True)
+
+    # the kernel at the waterfall: 11a 6 Mbps (the first rate) at 3 dB
+    if sw.A_RATES[0] != 6 or sw.SNRS_A[1] != 3:
+        raise AssertionError("the sweep's first 11a row is not 6 Mbps")
+    ab = inputs["11a"][1]
+    parity("sweep 11a 6 Mbps at 3 dB soft", ab, *auto_window(ab.shape[1]),
+           True)
+    kernels = {}
+    for name in ("11a", "11n"):
+        big = max(inputs[name], key=lambda t: t.numel())
+        kernels[name] = kernel_timing(vc, big, int32_ops_per_s)
+        print_kernel(f"sweep's largest {name}", kernels[name])
+
+    # one 11a and one 11n row, card against CPU, frame for frame
+    same = {}
+    for name, rx_mod, fn, grid, kw in (
+            ("11a 54 Mbps", arx, sw.sweep_11a, sw.SNRS_A, {"rates": (54,)}),
+            ("11n MCS 15", nrx, sw.sweep_11n, sw.SNRS_N,
+             {"mcs_list": (15,)})):
+        card = sweep_rows(sw, rx_mod, fn, grid, dev, **kw)
+        cpu = sweep_rows(sw, rx_mod, fn, grid, "cpu", **kw)
+        for snr, c, h in zip(grid, card, cpu):
+            ok = h["ok"].astype(bool)
+            if not (np.array_equal(c["ok"], h["ok"])
+                    and np.array_equal(c["length"][ok], h["length"][ok])
+                    and all(np.array_equal(c["psdu"][i][: h["length"][i]],
+                                           h["psdu"][i][: h["length"][i]])
+                            for i in np.flatnonzero(ok))):
+                raise AssertionError(f"sweep {name} at {snr} dB: card and "
+                                     "CPU frames differ")
+        same[name] = [int(h["ok"].sum()) for h in cpu]
+        print(f"sweep row {name}: card and CPU agree frame for frame at all "
+              f"{len(grid)} SNR points (ok frames {same[name]})", flush=True)
+    return {"sweeps": res, "wall_s": wall, "kernel": kernels,
+            "card_cpu_ok_frames": same}
+
+
+def ping_phase(torch, vc) -> dict:
+    """Phase 30: ``tools.ping_over_air`` (two port nodes bridged to TAPs in
+    two network namespaces) where the machine has root, /dev/net/tun and
+    iproute2's ``ip``; otherwise one line saying it was not run and why."""
+    import os
+    import shutil
+
+    from sora_tpu_torch.tools import ping_over_air
+
+    euid, tun = os.geteuid(), os.path.exists("/dev/net/tun")
+    ip = shutil.which("ip")
+    if euid != 0 or not tun or ip is None:
+        print(f"tools.ping_over_air: not run (it needs root, /dev/net/tun "
+              f"and the ip command; euid {euid}, /dev/net/tun present "
+              f"{tun}, ip {ip})", flush=True)
+        return {"run": False, "euid": euid, "tun": tun, "ip": ip}
+    vc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc, out = capture_stdout(lambda: ping_over_air.main([]))
+    dt = time.perf_counter() - t0
+    launches = launched(vc, "tools.ping_over_air")
+    for line in out.strip().splitlines():
+        print(f"  {line}", flush=True)
+    print(f"tools.ping_over_air: rc {rc} in {dt:.2f} s, kernel launches "
+          f"{launches}", flush=True)
+    if rc != 0 or "udp-echo-over-air OK" not in out:
+        raise AssertionError("tools.ping_over_air failed")
+    return {"run": True, "rc": rc, "s": dt, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2328,7 +2879,9 @@ def main() -> int:
           f"GHz) = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB = {bytes_ms:.4f} "
           f"ms; the TPU formulation's radix-4 count was "
           f"{ops_radix4 / 1e9:.4f} G ops); time/bound "
-          f"{kernel_ms / bound_ms:.2f}", flush=True)
+          f"{kernel_ms / bound_ms:.2f}; the windows run "
+          f"{bnd['window_steps'] / bnd['steps']:.3f}x the steps the "
+          "decode needs", flush=True)
 
     # ---- 5-7. TX, the mixed-rate path, the front end ------------------------
     paths = {"rx_pipeline": launches}
@@ -2397,6 +2950,22 @@ def main() -> int:
     for name, r in dm.items():
         paths[f"apps.demod11 {name}"] = r["launches"]
 
+    # ---- 26-30. the SDL layer, speanalyzer, node replay, sweep, ping ------
+    sdl = sdl_phase(torch, dev, vc)
+    for phy in ("a", "n", "b"):
+        paths[f"sdl.Radio phy {phy}"] = sdl[phy]["launches"]
+    paths["sdl.Radio.replay"] = sdl["replay"]["launches"]
+    spe = speanalyzer_phase(torch, dev, vc)
+    paths["apps.speanalyzer"] = spe["launches"]
+    ndump = node_dump_phase(torch, vc)
+    for name, r in ndump.items():
+        paths[f"apps.node --dump ({name})"] = r["launches"]
+    sweep = sweep_phase(torch, dev, vc, parity, int32_ops_per_s)
+    for name, r in sweep["sweeps"].items():
+        paths[f"sensitivity_sweep {name}"] = r["launches"]
+    ping = ping_phase(torch, vc)
+    paths["tools.ping_over_air"] = ping.get("launches")
+
     ht_shapes = [
         {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
          "launches_per_call": 1},
@@ -2436,7 +3005,9 @@ def main() -> int:
                           "soak": b11_soak["result"],
                           "soak_round": b11_soak["round"], "node": b11_node},
                "sharded": shard, "tvws": tv, "sniffer": sniff,
-               "demod11": dm, "kernel_launches_by_path": paths}
+               "demod11": dm, "sdl": sdl, "speanalyzer": spe,
+               "node_dump": ndump, "sweep": sweep, "ping_over_air": ping,
+               "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
@@ -2458,7 +3029,20 @@ def main() -> int:
             node["launches"] / node["decoded_batches"],
         "ht_shapes": ht_shapes,
         "sharded_launches_per_call": {
-            name: r["launches"] for name, r in shard["paths"].items()}}]}
+            name: r["launches"] for name, r in shard["paths"].items()},
+        "radio_launches_per_batch": {
+            phy: sdl[phy]["launches"] / max(1, sdl[phy]["decoded_batches"])
+            for phy in ("a", "n", "b")},
+        "sweep_receiver_calls": {
+            name: r["calls"] for name, r in sweep["sweeps"].items()},
+        "sweep_launches_per_call": {
+            name: r["launches"] / r["calls"]
+            for name, r in sweep["sweeps"].items()},
+        "sweep_shapes": [
+            {"path": f"sensitivity sweep's largest {name} call",
+             **{k: sweep["kernel"][name][k] for k in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}
+            for name in ("11a", "11n")]}]}
     print(json.dumps(kernels), flush=True)
     torch.distributed.destroy_process_group()
     print(card_line(), flush=True)

@@ -205,7 +205,7 @@ def main(argv=None) -> int:
                    help="torch device of the node (default cuda)")
     args = p.parse_args(argv)
 
-    from sora_tpu_torch.runtime.native import RxRing, parse_dump
+    from sora_tpu_torch.runtime.native import RxRing, replay_samples
     from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
     from sora_tpu_torch.util.config import load_config
 
@@ -217,7 +217,7 @@ def main(argv=None) -> int:
         if args.phy != "a":
             p.error("--dump replay is the 11a capture path; use "
                     "--synthetic with --phy b/n")
-        src = parse_dump(args.dump)
+        src = replay_samples(args.dump)      # in the wire's units
         input_rate = "40m" if args.msps == 40 else "20m"
         rate_sps = args.pace or float(args.msps) * 1e6
         batch = args.batch or 4

@@ -175,17 +175,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from sora_tpu_torch.apps.node import synthetic_traffic
-    from sora_tpu_torch.runtime.native import RxRing, parse_dump
+    from sora_tpu_torch.runtime.native import RxRing, replay_samples
     from sora_tpu_torch.runtime.node import NodeConfig
-    from sora_tpu_torch.util.xfer import I16_SCALE, resolve_device
+    from sora_tpu_torch.util.xfer import resolve_device
 
     dev = resolve_device(args.device)
     if args.dump:
-        # the dump holds ADC counts; the int16 wire carries counts at
-        # I16_SCALE per unit, so the replay is in the wire's units (the
-        # JAX app replays raw counts, which the AGC's 1/64 gain floor
-        # cannot bring inside the wire: a 14-bit 54 Mbps capture clips)
-        src = parse_dump(args.dump) / np.float32(I16_SCALE)
+        src = replay_samples(args.dump)      # in the wire's units
         input_rate = "40m" if args.msps == 40 else "20m"
         rate_sps = args.pace or float(args.msps) * 1e6
         # Clamp the window: a multi-second capture must stream through

@@ -72,6 +72,7 @@ struct RxRing {
   std::atomic<int> stop;
   // producer thread state (file replay)
   std::thread* producer;
+  std::atomic<int> producing;  // 1 while producer_main may still write
   float* src;
   long src_len;
   double rate_sps;       // replay pacing; 0 = as fast as possible
@@ -93,6 +94,7 @@ RxRing* sora_ring_create(long capacity) {
   r->reader_mask = 0;
   r->stop.store(0);
   r->producer = nullptr;
+  r->producing.store(0);
   r->src = nullptr;
   r->src_len = 0;
   r->rate_sps = 0;
@@ -146,6 +148,13 @@ long sora_ring_read(RxRing* r, int vs, float* out, long n) {
   return avail;
 }
 
+}  // extern "C"
+
+// Samples the replay producer writes into the ring before it publishes
+// them (one chunk of producer_main): while it writes, the ring may
+// already hold them past the published write cursor.
+static const long kReplayChunk = 4096;
+
 // Assemble `batch` overlapping windows (stride `hop`) straight from the
 // ring into quantized interleaved I/Q — the node's whole host-side feed
 // path (window slicing + AGC scaling + ADC saturation) in ONE pass with
@@ -155,8 +164,16 @@ long sora_ring_read(RxRing* r, int vs, float* out, long n) {
 // sample position of window 0, or -1 if fewer than
 // window + hop*(batch-1) samples are available, or -2 if that span
 // exceeds the ring capacity (caller must fall back).
-static long read_windows_common(RxRing* r, int vs, long window, long hop,
-                                long batch, long* rd_out) {
+//
+// A producer thread that laps the reader overwrites the oldest samples
+// while they are copied, which would splice two stretches of the stream
+// into one window.  After the copy the write cursor is read again: if
+// the producer reached the copied span, the reader moves on to the
+// newest full span, counts the samples it skips as drops and returns -1;
+// the next call copies that span.
+template <typename T>
+static long read_windows_q(RxRing* r, int vs, long window, long hop,
+                           long batch, float scale, float lim, T* out) {
   const long cap = r->capacity;
   long w = r->wr.load(std::memory_order_acquire);
   long rd = r->rd[vs].load(std::memory_order_relaxed);
@@ -168,54 +185,45 @@ static long read_windows_common(RxRing* r, int vs, long window, long hop,
   const long total = window + hop * (batch - 1);
   if (total > cap) return -2;
   if (w - rd < total) return -1;
-  *rd_out = rd;
-  return rd;
-}
-
-long sora_ring_read_windows_i16(RxRing* r, int vs, long window, long hop,
-                                long batch, float scale, int16_t* out) {
-  long rd;
-  long rc = read_windows_common(r, vs, window, hop, batch, &rd);
-  if (rc < 0) return rc;
-  const long cap = r->capacity;
   for (long b = 0; b < batch; ++b) {
     const long base = rd + b * hop;
-    int16_t* dst = out + 2 * b * window;
+    T* dst = out + 2 * b * window;
     for (long k = 0; k < window; ++k) {
       const long idx = (base + k) & (cap - 1);
       float re = r->buf[2 * idx] * scale;
       float im = r->buf[2 * idx + 1] * scale;
-      re = re > 32767.f ? 32767.f : (re < -32767.f ? -32767.f : re);
-      im = im > 32767.f ? 32767.f : (im < -32767.f ? -32767.f : im);
-      dst[2 * k] = (int16_t)re;
-      dst[2 * k + 1] = (int16_t)im;
+      re = re > lim ? lim : (re < -lim ? -lim : re);
+      im = im > lim ? lim : (im < -lim ? -lim : im);
+      dst[2 * k] = (T)re;
+      dst[2 * k + 1] = (T)im;
     }
   }
-  r->rd[vs].store(rd + hop * batch, std::memory_order_release);
-  return rd;
+  std::atomic_thread_fence(std::memory_order_acquire);
+  const long in_flight =
+      r->producing.load(std::memory_order_relaxed) ? kReplayChunk : 0;
+  const long w2 = r->wr.load(std::memory_order_relaxed);
+  if (w2 + in_flight - cap <= rd) {  // nothing copied was overwritten
+    r->rd[vs].store(rd + hop * batch, std::memory_order_release);
+    return rd;
+  }
+  const long newest = w2 - total > rd ? w2 - total : rd;
+  r->drops[vs].fetch_add(newest - rd);
+  r->rd[vs].store(newest, std::memory_order_release);
+  return -1;
+}
+
+extern "C" {
+
+long sora_ring_read_windows_i16(RxRing* r, int vs, long window, long hop,
+                                long batch, float scale, int16_t* out) {
+  return read_windows_q<int16_t>(r, vs, window, hop, batch, scale, 32767.f,
+                                 out);
 }
 
 long sora_ring_read_windows_i8(RxRing* r, int vs, long window, long hop,
                                long batch, float scale, int8_t* out) {
-  long rd;
-  long rc = read_windows_common(r, vs, window, hop, batch, &rd);
-  if (rc < 0) return rc;
-  const long cap = r->capacity;
-  for (long b = 0; b < batch; ++b) {
-    const long base = rd + b * hop;
-    int8_t* dst = out + 2 * b * window;
-    for (long k = 0; k < window; ++k) {
-      const long idx = (base + k) & (cap - 1);
-      float re = r->buf[2 * idx] * scale;
-      float im = r->buf[2 * idx + 1] * scale;
-      re = re > 127.f ? 127.f : (re < -127.f ? -127.f : re);
-      im = im > 127.f ? 127.f : (im < -127.f ? -127.f : im);
-      dst[2 * k] = (int8_t)re;
-      dst[2 * k + 1] = (int8_t)im;
-    }
-  }
-  r->rd[vs].store(rd + hop * batch, std::memory_order_release);
-  return rd;
+  return read_windows_q<int8_t>(r, vs, window, hop, batch, scale, 127.f,
+                                out);
 }
 
 long sora_ring_available(RxRing* r, int vs) {
@@ -234,7 +242,7 @@ long sora_ring_drops(RxRing* r, int vs) { return r->drops[vs].load(); }
 
 static void producer_main(RxRing* r) {
   using clk = std::chrono::steady_clock;
-  const long chunk = 4096;
+  const long chunk = kReplayChunk;
   auto t0 = clk::now();
   long sent = 0;
   long pos = 0;
@@ -257,6 +265,7 @@ static void producer_main(RxRing* r) {
       pos = 0;
     }
   }
+  r->producing.store(0, std::memory_order_release);
 }
 
 // Start replaying `iq` (n samples) into the ring at rate_sps (0 = flat
@@ -269,6 +278,7 @@ void sora_ring_start_replay(RxRing* r, const float* iq, long n,
   r->rate_sps = rate_sps;
   r->loop = loop;
   r->stop.store(0);
+  r->producing.store(1);
   r->producer = new std::thread(producer_main, r);
 }
 

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from sora_tpu_torch.util.xfer import I16_SCALE
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "sora_host.cpp"
 LIBRARY = _PKG / "_build" / "libsora_host_torch.so"
@@ -118,6 +120,17 @@ def parse_dump(path: str, sign_extend_14bit: bool = True) -> np.ndarray:
         raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(raw),
         1 if sign_extend_14bit else 0, _fptr(out))
     return out[: 2 * n].view(np.complex64)
+
+
+def replay_samples(path: str, sign_extend_14bit: bool = True) -> np.ndarray:
+    """A dump's samples in the sample wire's units, for replay into a ring.
+
+    A dump holds ADC counts; the node's int16 wire carries ``I16_SCALE``
+    counts per unit, so a ring fed raw counts clips at the wire even at
+    the AGC's 1/64 gain floor (a 14-bit 54 Mbps capture then fails the
+    CRC).  The JAX package replays raw counts; the node app, the sniffer
+    and ``sdl.Radio.replay`` replay through this function instead."""
+    return parse_dump(path, sign_extend_14bit) / np.float32(I16_SCALE)
 
 
 class RxRing:

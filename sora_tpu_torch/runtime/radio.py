@@ -1,6 +1,6 @@
 """Radio manager: the SoraURadio* command surface over a software front
 end (port of ``sora_tpu.runtime.radio``: ChannelModel, REF_TAPS,
-RadioState, SoftRadio).
+RadioState, SoftRadio, save_state, load_state).
 
 The reference's radio manager programs a real RCB/RF board —
 `SoraURadioStart / SetRxPA / SetRxGain / SetTxGain / SetCentralFreq /
@@ -23,6 +23,7 @@ change runs through ``phy.frontend.resample`` on the radio's ``device``
 
 from __future__ import annotations
 
+import json
 import threading
 from dataclasses import dataclass, field
 from fractions import Fraction
@@ -274,3 +275,26 @@ class SoftRadio:
             self._tx_sink(out)
         return out
 
+
+
+# -- persisted register image (the usereg CLI's handle on a radio) ----------
+
+
+def save_state(state: RadioState, path: str) -> None:
+    """Serialize the RADIO_CONTEXT register image to a JSON file — the
+    cross-process handle apps/usereg.py operates on (the reference's
+    usereg.cpp talks to the driver's radio context via DeviceIoControl;
+    here the context is a file the owning process reloads).  The file is
+    the JAX package's byte for byte, so either package reads the other's."""
+    d = dict(vars(state))
+    d["registers"] = {str(k): v for k, v in state.registers.items()}
+    with open(path, "w") as f:
+        json.dump(d, f, indent=1, sort_keys=True)
+
+
+def load_state(path: str) -> RadioState:
+    with open(path) as f:
+        d = json.load(f)
+    d["registers"] = {int(k): int(v)
+                      for k, v in d.get("registers", {}).items()}
+    return RadioState(**d)

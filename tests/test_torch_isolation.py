@@ -1,7 +1,8 @@
 """sora_tpu_torch stands alone and never runs quietly on the CPU.
 
 * Importing every module of the package — the sharding layer, the
-  golden-model copies, the apps and the tools among them — pulls in
+  golden-model copies, the SDL layer, the apps and the tools among them —
+  pulls in
   neither JAX nor any module of the JAX package ``sora_tpu`` (checked in
   a fresh process).
 * No source of the package, nor chip_smoke.py, nor the program the
@@ -26,14 +27,16 @@ import torch
 
 import sora_tpu_torch
 from sora_tpu_torch.ops import viterbi_cuda as vc
-from sora_tpu_torch.apps import demod11, sniffer, tvws
+from sora_tpu_torch import sdl
+from sora_tpu_torch.apps import demod11, sniffer, speanalyzer, tvws
 from sora_tpu_torch.apps import node as tapp
 from sora_tpu_torch.parallel import distributed as pdist
 from sora_tpu_torch.parallel import shard as psh
 from sora_tpu_torch.phy.dot11a import rx as trx
 from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11n import rx as nrx
-from sora_tpu_torch.tools import bench, scaling_bench
+from sora_tpu_torch.tools import (bench, ping_over_air, scaling_bench,
+                                  sensitivity_sweep)
 from sora_tpu_torch.runtime import device_air, native, node, radio
 from sora_tpu_torch.util import xfer
 
@@ -70,11 +73,14 @@ def test_package_imports_no_jax_nor_sora_tpu():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n, bad = proc.stdout.split(maxsplit=1)
-    assert int(n) == len(_modules()) >= 63
+    assert int(n) == len(_modules()) >= 73
     for name in ("parallel.shard", "parallel.distributed", "golden.dot11a_np",
                  "golden.dot11b_np", "golden.dot11n_np", "apps.tvws",
                  "apps.sniffer", "apps.demod11", "tools.multihost_worker",
-                 "tools.scaling_bench"):
+                 "tools.scaling_bench", "sdl", "util.hwveri", "util.render",
+                 "util.trace", "apps.speanalyzer", "apps.plotview",
+                 "apps.srview", "apps.usereg", "tools.sensitivity_sweep",
+                 "tools.ping_over_air"):
         assert f"sora_tpu_torch.{name}" in _modules()
     assert bad.strip() == "[]"
 
@@ -246,3 +252,46 @@ def test_ring_build_without_gxx_raises(monkeypatch):
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native.build(force=True)
+
+
+def test_sdl_spectrum_and_sweep_raise_without_cuda(monkeypatch, tmp_path):
+    """``sdl.Radio``, ``Signal.resample``, ``Signal.spectrum``,
+    ``welch_spectrum``, the speanalyzer CLI, the sensitivity sweep and the
+    ping tool's nodes need CUDA unless the caller names the CPU; the Radio
+    allocates no ring on the way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.exp(2j * np.pi * 0.1 * np.arange(2048)).astype(np.complex64)
+    made = []
+    orig_ring = sdl.RxRing
+    monkeypatch.setattr(sdl, "RxRing",
+                        lambda *a, **k: made.append(1) or orig_ring(*a, **k))
+    sig = sdl.Signal(x, 20e6)
+    for call in (lambda: sdl.Radio(phy="a"),
+                 lambda: sdl.Radio(phy="n"),
+                 lambda: sig.resample(40e6),
+                 lambda: sig.resample(40e6, device="cuda"),
+                 lambda: sig.spectrum(256),
+                 lambda: speanalyzer.welch_spectrum(x, 256, 20e6),
+                 lambda: speanalyzer.main(["--tone", "1e6", "--msps", "20"]),
+                 lambda: sensitivity_sweep.sweep_11a([30], n=1, rates=(6,)),
+                 lambda: sensitivity_sweep.sweep_11b([30], n=1),
+                 lambda: sensitivity_sweep.sweep_11n([30], mcs_list=(0,),
+                                                     n=1),
+                 lambda: sensitivity_sweep.sweep_11n_mixed([30], n=1),
+                 lambda: sensitivity_sweep.sweep_11a_multipath([30], n=1),
+                 lambda: sensitivity_sweep.main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert made == []
+    monkeypatch.setattr("os.geteuid", lambda: 0)
+    monkeypatch.setattr("os.path.exists", lambda p: True)
+    monkeypatch.setattr("shutil.which", lambda name: f"/usr/sbin/{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ping_over_air.main([])
+    monkeypatch.undo()
+    # the CPU only when asked for
+    assert sig.resample(40e6, device="cpu").sample_rate == 40e6
+    f, p = speanalyzer.welch_spectrum(x, 256, 20e6, device="cpu")
+    assert abs(f[int(np.argmax(p))] - 2e6) < 1e5
+    with sdl.Radio(phy="a", max_psdu=64, batch=1, device="cpu") as r:
+        assert r.node.device.type == "cpu" and len(r.rings) == 1

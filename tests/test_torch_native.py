@@ -6,6 +6,12 @@ The same writes go into both rings; reads, windowed int16/int8 reads (at
 several gains, saturating), availability and overrun drops must be equal
 exactly, and both dump parsers must read tests/data/fsample54.dmp
 exactly as io.dumpfile.load_dump does.
+
+One recorded difference: under a replay producer that laps the reader,
+the port's windowed read never returns a window that the producer
+overwrote while it was copied (it drops that span, and the next read
+takes the newest one); the JAX package's ring can splice two stretches of
+the stream into one window there.
 """
 
 import time
@@ -129,3 +135,66 @@ def test_replay_paced_and_monotonic_ns():
     assert dt >= 0.04                          # pacing actually paced
     a, b = tn.monotonic_ns(), tn.monotonic_ns()
     assert b >= a > 0
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int8])
+def test_read_windows_never_torn_by_an_overrunning_replay(dtype):
+    """A ramp replayed, looped, at 50 Msps into a ring of 2^16 that the
+    reader lets overrun: every window returned is one contiguous stretch
+    of the ramp, starting at the position the read reports, and the
+    samples skipped count as drops."""
+    period = 120 if dtype == np.int8 else 32000
+    ramp = (np.arange(period) % period).astype(np.complex64)
+    ring = tn.RxRing(capacity=1 << 16)
+    vs = ring.alloc_vstream()
+    window, hop, batch = 8192, 8192, 6
+    ring.start_replay(ramp, rate_sps=5e7, loop=True)
+    good = torn = 0
+    t_end = time.monotonic() + 0.5
+    try:
+        while time.monotonic() < t_end:
+            got = ring.read_windows(vs, window, hop, batch, 1.0, dtype)
+            if got is None:
+                continue
+            h, start = got
+            v = h[..., 0].astype(np.int64)
+            first = (start + hop * np.arange(batch)) % period
+            if ((np.diff(v, axis=1) % period == 1).all()
+                    and (v[:, 0] == first).all()):
+                good += 1
+            else:
+                torn += 1
+            time.sleep(0.002)        # the reader falls behind: overrun
+    finally:
+        ring.stop()
+    drops = ring.drops(vs)
+    ring.close()
+    assert torn == 0 and good > 0
+    assert drops > 0
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int8])
+def test_read_windows_after_a_finished_replay_keeps_every_sample(dtype):
+    """A replay that is not looped fills the ring to its last sample and
+    ends; a read of the whole ring then returns every sample, in order, and
+    drops none (no producer writes any more, so none can be in flight)."""
+    cap = 1 << 14
+    period = 120 if dtype == np.int8 else 32000
+    ramp = (np.arange(cap) % period).astype(np.complex64)
+    ring = tn.RxRing(capacity=cap)
+    vs = ring.alloc_vstream()
+    ring.start_replay(ramp, rate_sps=0.0, loop=False)
+    t_end = time.monotonic() + 10.0
+    while ring.available(vs) < cap and time.monotonic() < t_end:
+        time.sleep(0.001)
+    time.sleep(0.05)                  # the producer returns after its write
+    try:
+        got = ring.read_windows(vs, cap // 2, cap // 2, 2, 1.0, dtype)
+    finally:
+        ring.stop()
+    drops = ring.drops(vs)
+    ring.close()
+    assert got is not None and drops == 0
+    h, start = got
+    assert start == 0
+    assert np.array_equal(h[..., 0].reshape(-1), ramp.real.astype(dtype))
