@@ -172,7 +172,22 @@ Phases (any failure raises and the script exits nonzero):
 30. ``tools.ping_over_air`` where the machine has root, /dev/net/tun and
    iproute2's ``ip`` (exit 0, ``udp-echo-over-air OK``), else one line
    saying why not;
-31. a JSON line of the kernels, the card line, and as the last line
+31. the robustness batches (``tools/robustness.py``: the inputs of the
+   JAX package's channel, SFO and fuzz suites, made on the host from
+   their seed): 11a multipath at 6/12/24/54 Mbps and with +20 ppm SFO,
+   11n 2x2 multipath at MCS 9 and 13, 11b two-ray, +-20 ppm MTU frames
+   (2500-byte PSDU) at the 8 rates and at MCS 8-15, the 6 Mbps MTU frame
+   of the slope check, and the 11a, 11b and 11n fuzz batches: every row
+   equal to the CPU run on the exact fields, every frame its true rate or
+   MCS, length and bytes, exactly 1 launch per 11a call, 2 per 11n call, 0
+   per 11b call; four garbage inputs through every ``demodulate``: never
+   ok, equal to the CPU, as many launches as the CPU run decoded; the
+   kernel against its plain version, its time and bound on the +20 ppm
+   MTU 11a (8, 20160) and 11n data calls' own inputs; then
+   ``tools.node_soak --phy b`` (0 launches) and ``--phy a --channel``
+   (1 launch for the warm-up and 1 per decoded batch) for 10 s each: exit
+   0, frames above 0, crc_fail at most 2% of them;
+32. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
@@ -425,12 +440,15 @@ def psdus_1500(n: int, seed: int) -> np.ndarray:
         for i in range(n)])
 
 
+ROW_TOL = {"det": 1e-4, "cfo": 1e-5, "snr_db": 0.05}   # card against CPU
+
+
 def check_rows(card: dict, cpu: dict, rows: int, keys) -> None:
     """The first ``rows`` rows of the card's outputs equal the CPU's."""
     for key in keys:
         if not np.array_equal(cpu[key], card[key][:rows]):
             raise AssertionError(f"card and CPU disagree on {key}")
-    for key, tol in (("det", 1e-4), ("cfo", 1e-5), ("snr_db", 0.05)):
+    for key, tol in ROW_TOL.items():
         err = float(np.abs(cpu[key] - card[key][:rows]).max())
         if err > tol:
             raise AssertionError(f"card and CPU differ on {key} by {err}")
@@ -2690,6 +2708,194 @@ def ping_phase(torch, vc) -> dict:
     return {"run": True, "rc": rc, "s": dt, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the robustness batches and the node soaks (phase 31)
+# ---------------------------------------------------------------------------
+
+TIE_RTOL = 1e-4           # a tie of the LTS metric, relative to its max
+                          # over the receiver's window
+SOAK_RUNS = (("--phy", "b", "--seconds", "10"),
+             ("--phy", "a", "--channel", "--seconds", "10"))
+
+
+def float_drift(card: dict, cpu: dict, what: str) -> dict:
+    """The largest card-against-CPU difference of each float field; raises
+    above check_rows' tolerances."""
+    drift = {k: float(np.abs(card[k] - cpu[k]).max())
+             for k in ("cfo", "snr_db") if k in cpu}
+    for k, v in drift.items():
+        if v > ROW_TOL[k]:
+            raise AssertionError(f"{what}: card and CPU differ on {k} by "
+                                 f"{v}")
+    return drift
+
+
+def lts_tie(phy: str, x: np.ndarray, starts, dev) -> float:
+    """How far below its maximum over the receiver's window the LTS metric
+    that the phy's ``synchronize`` takes the argmax of (``lts_metric``, on
+    the card) stands at the lower of two sync positions: near 0 where both
+    are a tie for the maximum."""
+    from sora_tpu_torch.tools import robustness as rb
+    from sora_tpu_torch.util.xfer import device_complex
+
+    xs = device_complex(np.stack([x, x])[None] if phy == "n" else x[None],
+                        dev)
+    c2 = rb.receiver(phy).lts_metric(xs)[0][0]
+    top = float(c2.max())
+    low = min(float(c2[s]) for s in starts)
+    return (top - low) / top if top > 0 else 0.0      # all zero: all tie
+
+
+def soak_run(vc, argv) -> dict:
+    """``tools.node_soak`` in-process on the card: exit 0, frames above 0,
+    crc_fail at most 2% of them; kernel launches 0 for phy "b", else 1
+    for the node's warm-up and 1 per decoded batch."""
+    from sora_tpu_torch.runtime import node as node_mod
+    from sora_tpu_torch.tools import node_soak
+
+    made = []
+
+    class Spy(node_mod.StreamingNode):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    orig = node_mod.StreamingNode
+    node_mod.StreamingNode = Spy
+    try:
+        vc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc, out = capture_stdout(lambda: node_soak.main(list(argv)))
+        dt = time.perf_counter() - t0
+    finally:
+        node_mod.StreamingNode = orig
+    what = "tools.node_soak " + " ".join(argv)
+    st = made[-1].stats
+    if made[-1].cfg.phy == "b":
+        launches = no_launch(vc, what)
+    else:
+        launches = launched(vc, what, 1 + st.decoded_batches)
+    for line in out.strip().splitlines()[-4:]:
+        print(f"  {line}", flush=True)
+    print(f"{what}: rc {rc} in {dt:.2f} s, frame_ok {st.frame_ok}, "
+          f"crc_fail {st.crc_fail}, decoded batches {st.decoded_batches}, "
+          f"kernel launches {launches}", flush=True)
+    if rc != 0 or st.frame_ok == 0 or st.crc_fail > 0.02 * st.frame_ok:
+        raise AssertionError(f"{what} failed")
+    return {"rc": rc, "s": dt, "frame_ok": st.frame_ok,
+            "crc_fail": st.crc_fail, "decoded_batches": st.decoded_batches,
+            "launches": launches}
+
+
+def robustness_phase(torch, dev, vc, parity, int32_ops_per_s) -> dict:
+    """Phase 31: the robustness batches on the card -- the inputs of the
+    JAX package's channel, SFO and fuzz suites from
+    ``tools/robustness.py`` (made on the host from the suites' seed, as
+    tests/test_torch_{channel,sfo,fuzz_loopback}.py make them): every row
+    equal to the CPU run on the exact fields, the suites' truths, exactly
+    1 launch per 11a call, 2 per 11n call, 0 per 11b call; the garbage
+    inputs through every ``demodulate``, never ok, equal to the CPU, as
+    many launches as the CPU run made decodes, the sync position equal
+    or a tie for the maximum of the LTS metric in the receiver's window;
+    the float drift within check_rows' tolerances; the kernel against its
+    plain version, its time and its bound on the +20 ppm MTU 11a and 11n
+    calls' own Viterbi inputs; then ``tools.node_soak --phy b`` and
+    ``--phy a --channel`` for 10 s each."""
+    from sora_tpu_torch.tools import robustness as rb
+
+    t_phase = time.perf_counter()
+    res, mtu, mtu_per_decode = {}, {}, {}
+    for b in rb.batches():
+        cpu = rb.run(b, "cpu")
+        vc.LAUNCHES = 0
+        with viterbi_inputs() as seen:
+            t0 = time.perf_counter()
+            card = rb.run(b, dev)
+            dt = time.perf_counter() - t0
+        want = rb.LAUNCHES_PER_CALL[b.phy]
+        launches = (launched(vc, b.name, want) if want
+                    else no_launch(vc, b.name))
+        bad = rb.exact_errors(card, cpu)
+        if bad:
+            raise AssertionError(f"{b.name}: card and CPU differ on {bad}")
+        truth = rb.truth_errors(b, card)
+        if truth:
+            raise AssertionError(f"{b.name}: {truth}")
+        drift = float_drift(card, cpu, b.name)
+        res[b.name] = {"shape": list(b.x.shape), "ok": int(card["ok"].sum()),
+                       "rows": len(b.psdus), "launches": launches,
+                       "s": dt, "drift": drift}
+        if b.name in ("11a +20 ppm MTU, 8 rates",
+                      "11n +20 ppm MTU, MCS 8-15"):
+            mtu[b.phy] = seen[-1]                  # the data decode
+            mtu_per_decode[b.phy] = launches / len(seen)
+            if mtu_per_decode[b.phy] != 1:
+                raise AssertionError(f"{b.name}: {launches} launches for "
+                                     f"{len(seen)} decodes")
+        print(f"robustness {b.name} {b.x.shape}: ok {res[b.name]['ok']}/"
+              f"{len(b.psdus)}, true rate/MCS, length and bytes; card and "
+              f"CPU equal on the exact fields (float drift "
+              + ", ".join(f"{k} {v:.2e}" for k, v in drift.items())
+              + f"); kernel launches {launches}; {dt * 1e3:.1f} ms with "
+              "the fetch", flush=True)
+
+    garbage = {}
+    for name, x in zip(rb.GARBAGE_NAMES, rb.garbage()):
+        with viterbi_inputs() as seen:
+            cpu = rb.demodulate_garbage(x, "cpu")
+        vc.LAUNCHES = 0
+        card = rb.demodulate_garbage(x, dev)
+        torch.cuda.synchronize()
+        launches = vc.LAUNCHES
+        if launches != len(seen):
+            raise AssertionError(f"garbage {name}: {launches} launches, "
+                                 f"the CPU run decoded {len(seen)} times")
+        ties = {}
+        for phy, r in card.items():
+            h = cpu[phy]
+            fields = (("ok", "reason", "rate_mbps", "length_us")
+                      if phy == "b" else ("ok", "reason", "length",
+                                          "mcs" if phy == "n"
+                                          else "rate_mbps"))
+            if r.ok or not isinstance(r.reason, str) or any(
+                    getattr(r, k) != getattr(h, k) for k in fields):
+                raise AssertionError(f"garbage {name} phy {phy}: card {r}, "
+                                     f"CPU {h}")
+            # a sync position may differ only on a tie of the LTS metric
+            # (a pure tone's |LTS correlation| is the same at every offset)
+            if phy != "b" and r.start != h.start:
+                ties[phy] = (r.start, h.start,
+                             lts_tie(phy, x, (r.start, h.start), dev))
+                if ties[phy][2] > TIE_RTOL:
+                    raise AssertionError(f"garbage {name} phy {phy}: sync "
+                                         f"at {r.start} on the card, "
+                                         f"{h.start} on the CPU, no tie")
+        garbage[name] = {"reasons": {p: r.reason for p, r in card.items()},
+                         "launches": launches, "start_ties": ties}
+        print(f"robustness garbage {name}: " + ", ".join(
+            f"{p} {r.reason}" for p, r in card.items())
+            + f"; equal to the CPU, never ok; kernel launches {launches}"
+            + "".join(f"; {p} sync at {a} on the card and {b} on the CPU, "
+                      f"a tie of the LTS metric (relative gap {t:.1e})"
+                      for p, (a, b, t) in ties.items()), flush=True)
+
+    kernels = {}
+    for phy, what in (("a", "11a +20 ppm MTU"), ("n", "11n +20 ppm MTU")):
+        ab = mtu[phy]
+        parity(f"robustness {what} soft", ab, *auto_window(ab.shape[1]),
+               True)
+        kernels[phy] = kernel_timing(vc, ab, int32_ops_per_s)
+        kernels[phy]["launches_per_decode"] = mtu_per_decode[phy]
+        print_kernel(f"robustness {what} data", kernels[phy])
+
+    soaks = {" ".join(argv): soak_run(vc, argv) for argv in SOAK_RUNS}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 31 (robustness batches, garbage, kernel, node soaks): "
+          f"{wall:.1f} s", flush=True)
+    return {"batches": res, "garbage": garbage, "kernel": kernels,
+            "node_soak": soaks, "s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -2966,6 +3172,15 @@ def main() -> int:
     ping = ping_phase(torch, vc)
     paths["tools.ping_over_air"] = ping.get("launches")
 
+    # ---- 31. the robustness batches and the node soaks ---------------------
+    robust = robustness_phase(torch, dev, vc, parity, int32_ops_per_s)
+    for name, r in robust["batches"].items():
+        paths[f"robustness {name}"] = r["launches"]
+    for name, r in robust["garbage"].items():
+        paths[f"robustness garbage {name}"] = r["launches"]
+    for name, r in robust["node_soak"].items():
+        paths[f"tools.node_soak {name}"] = r["launches"]
+
     ht_shapes = [
         {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
          "launches_per_call": 1},
@@ -3007,7 +3222,7 @@ def main() -> int:
                "sharded": shard, "tvws": tv, "sniffer": sniff,
                "demod11": dm, "sdl": sdl, "speanalyzer": spe,
                "node_dump": ndump, "sweep": sweep, "ping_over_air": ping,
-               "kernel_launches_by_path": paths}
+               "robustness": robust, "kernel_launches_by_path": paths}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
@@ -3042,7 +3257,16 @@ def main() -> int:
             {"path": f"sensitivity sweep's largest {name} call",
              **{k: sweep["kernel"][name][k] for k in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by")}}
-            for name in ("11a", "11n")]}]}
+            for name in ("11a", "11n")],
+        "robustness_launches_per_call": {
+            name: r["launches"] for name, r in robust["batches"].items()},
+        "robustness_shapes": [
+            {"path": f"robustness {what} data call",
+             **{k: robust["kernel"][phy][k] for k in (
+                 "shape", "block", "overlap", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "launches_per_decode")}}
+            for phy, what in (("a", "11a +20 ppm MTU"),
+                              ("n", "11n +20 ppm MTU"))]}]}
     print(json.dumps(kernels), flush=True)
     torch.distributed.destroy_process_group()
     print(card_line(), flush=True)

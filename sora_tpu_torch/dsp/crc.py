@@ -1,4 +1,5 @@
-"""CRC-32 on device — torch (port of ``sora_tpu.dsp.crc``).
+"""CRC-32 on device — torch (port of ``sora_tpu.dsp.crc``), and the
+802.11b PLCP header's CRC-16.
 
 The reference checks the 802.11 FCS incrementally with byte LUTs
 (kernel/core/inc/CRC32.h, used by TBB11aFrameSink, PHY_11a.hpp:607-702).
@@ -141,3 +142,16 @@ def crc32_batch(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         torch.arange(32, device=data.device)
     crc = torch.sum(reg * weights, dim=1)
     return crc ^ 0xFFFFFFFF
+
+
+def crc16_bits(bits: np.ndarray) -> int:
+    """CRC-16 of the 802.11b PLCP header (Clause 18.2.3.6; the reference
+    computes it at PHY_11b.hpp:126): poly x^16+x^12+x^5+1, init 0xFFFF,
+    ones-complement result, input is the LSB-first PLCP bit stream."""
+    crc = 0xFFFF
+    for bit in np.asarray(bits, dtype=np.uint8):
+        c15 = (crc >> 15) & 1
+        crc = (crc << 1) & 0xFFFF
+        if c15 ^ int(bit):
+            crc ^= 0x1021
+    return (~crc) & 0xFFFF

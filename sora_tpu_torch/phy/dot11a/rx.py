@@ -123,6 +123,15 @@ def synchronize(x: torch.Tensor):
     rad/sample, detect_metric (B,) float32 in [0, 1] (STS autocorrelation
     plateau quality — the CCA decision statistic).
     """
+    c2, cfo, det = lts_metric(x)
+    lts1 = torch.argmax(c2, dim=-1).to(torch.int32)
+    return lts1, cfo, det
+
+
+def lts_metric(x: torch.Tensor):
+    """The LTS metric that :func:`synchronize` takes the argmax of: (B, L)
+    float32, zero outside each stream's window [sts, sts + 512); with the
+    coarse CFO and the detect metric."""
     B, N = x.shape
     w, _, m = _sts_metric(x)
     # restrict the STS search so a full preamble+SIGNAL still fits
@@ -142,9 +151,7 @@ def synchronize(x: torch.Tensor):
     # only accept the LTS of THIS frame: within [sts, sts + 512)
     pos = torch.arange(c2.shape[-1], device=x.device)[None, :]
     in_range = (pos >= sts[:, None]) & (pos < sts[:, None] + 512)
-    c2 = torch.where(in_range, c2, 0.0)
-    lts1 = torch.argmax(c2, dim=-1).to(torch.int32)
-    return lts1, cfo, det
+    return torch.where(in_range, c2, 0.0), cfo, det
 
 
 def _prior_hits(hit: torch.Tensor, span: int) -> torch.Tensor:

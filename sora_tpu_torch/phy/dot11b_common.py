@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sora_tpu_torch.dsp.crc import crc16_bits
+
 CHIP_RATE = 11_000_000          # chips/s
 BARKER = np.array([1, -1, 1, 1, -1, 1, 1, 1, -1, -1, -1], dtype=np.float64)
 
@@ -108,11 +110,6 @@ def cck55_codebook() -> np.ndarray:
 
 def crc16_plcp(bits: np.ndarray) -> int:
     """CRC-16 over the PLCP header bit stream (x^16+x^12+x^5+1, init all
-    ones, ones-complement), bit-serial as transmitted."""
-    crc = 0xFFFF
-    for bit in np.asarray(bits, dtype=np.uint8):
-        c15 = (crc >> 15) & 1
-        crc = (crc << 1) & 0xFFFF
-        if c15 ^ int(bit):
-            crc ^= 0x1021
-    return (~crc) & 0xFFFF
+    ones, ones-complement), bit-serial as transmitted: it is
+    :func:`sora_tpu_torch.dsp.crc.crc16_bits`."""
+    return crc16_bits(bits)

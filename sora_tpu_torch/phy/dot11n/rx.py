@@ -124,6 +124,15 @@ def synchronize(x: torch.Tensor):
     x: (B, 2, N) complex64.  Returns (lts1 (B,) int32 — start of the first
     legacy LTS repeat, cfo (B,) float32 rad/sample, det (B,) float32).
     """
+    c2, cfo, det = lts_metric(x)
+    lts1 = torch.argmax(c2, dim=-1).to(torch.int32)
+    return lts1, cfo, det
+
+
+def lts_metric(x: torch.Tensor):
+    """The LTS metric that :func:`synchronize` takes the argmax of: (B, L)
+    float32 summed over both antennas, zero outside each stream's window
+    [sts, sts + 320]; with the coarse CFO and the detect metric."""
     B, A, Nn = x.shape
     xf = x.reshape(B * A, Nn)
     ac = xf[:, 16:] * torch.conj(xf[:, :-16])
@@ -151,9 +160,7 @@ def synchronize(x: torch.Tensor):
     # the legacy LTS begins within ~320 samples of the STS plateau onset;
     # the window excludes the (LTS-like) HT-LTFs further into the frame
     inwin = (pos >= sts[:, None]) & (pos <= sts[:, None] + 320)
-    c2 = torch.where(inwin, c2, 0.0)
-    lts1 = torch.argmax(c2, dim=-1).to(torch.int32)
-    return lts1, cfo, det
+    return torch.where(inwin, c2, 0.0), cfo, det
 
 
 # =============================================================================

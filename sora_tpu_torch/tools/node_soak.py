@@ -1,9 +1,9 @@
 """Node soak: sustained looped traffic through the live node, with its
-invariant and leak checks (port of the JAX package's ``tools/soak.py``,
-phy "a").
+invariant and leak checks (port of the JAX package's ``tools/soak.py``).
 
-Loops mixed-rate traffic through the StreamingNode for ``--seconds`` and
-checks the long-run invariants:
+Loops mixed-rate traffic (phy "a": the 8 OFDM rates at 20 Msps; phy "b":
+the 4 DSSS/CCK rates at 11 Msps chips) through the StreamingNode for
+``--seconds`` and checks the long-run invariants:
 
 * decode keeps up (frame_ok strictly increasing between checkpoints),
 * bounded state: dedup table, ACK-latency deque, pending queues,
@@ -13,6 +13,7 @@ checks the long-run invariants:
 Run from the repository root (on the card by default)::
 
     python -m sora_tpu_torch.tools.node_soak --seconds 30
+    python -m sora_tpu_torch.tools.node_soak --phy b --seconds 30
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sora_tpu_torch.tools.node_soak",
                                 description=__doc__.split("\n")[0])
     p.add_argument("--seconds", type=float, default=30.0)
+    p.add_argument("--phy", default="a", choices=("a", "b"))
     p.add_argument("--wire", default="i8", choices=("i16", "i8"))
     p.add_argument("--channel", action="store_true",
                    help="run the air through the radio's ChannelModel "
@@ -41,14 +43,17 @@ def main(argv=None) -> int:
     from sora_tpu_torch.runtime.node import NodeConfig, StreamingNode, TxSink
 
     addr = b"\x02SORA1"
-    cfg = NodeConfig(max_psdu=256, min_rate_mbps=6, addr=addr,
-                     rate_mbps=None, wire=args.wire)
+    cfg = NodeConfig(phy=args.phy, max_psdu=256, min_rate_mbps=6,
+                     addr=addr, rate_mbps=None, wire=args.wire,
+                     input_rate="11m" if args.phy == "b" else "20m",
+                     sample_rate_sps=11e6 if args.phy == "b" else 20e6)
     ring = RxRing(capacity=1 << 24)
     node = StreamingNode(ring, cfg, tx_sink=TxSink(), device=args.device)
-    print(f"soak: wire={args.wire} window={cfg.window} batch={cfg.batch} "
-          f"device={node.device}", flush=True)
+    print(f"soak: phy={args.phy} wire={args.wire} window={cfg.window} "
+          f"batch={cfg.batch} device={node.device}", flush=True)
     node.warm_up()
-    src = synthetic_traffic(64, addr, mixed=True, rate=6, device=args.device)
+    src = synthetic_traffic(64, addr, mixed=True, rate=6, phy=args.phy,
+                            device=args.device)
     if args.channel:
         from sora_tpu_torch.runtime.radio import (REF_TAPS, ChannelModel,
                                                   SoftRadio)

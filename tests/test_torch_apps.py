@@ -136,10 +136,15 @@ def test_node_app_phy_b_decodes_mixed_rates(capsys, monkeypatch):
     assert "12 frames, 12 acks" in out, out
 
 
-def test_node_soak_tool_runs(capsys):
-    rc = node_soak.main(["--seconds", "1.0", "--device", "cpu"])
+@pytest.mark.parametrize("phy", ["a", "b"])
+def test_node_soak_tool_runs(phy, capsys):
+    """The soak at phy "a" (20 Msps OFDM) and phy "b" (11 Msps chips, the
+    JAX soak's ``--phy b``): exit 0 with frames decoded."""
+    rc = node_soak.main(["--phy", phy, "--seconds", "1.0", "--device",
+                         "cpu"])
     out = capsys.readouterr().out
     assert rc == 0, out
+    assert f"soak: phy={phy} " in out, out
     frames = int(out.split("soak OK (")[1].split()[0])
     assert frames > 0, out
 

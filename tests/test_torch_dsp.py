@@ -121,6 +121,21 @@ def test_crc32_bytes_matches_jax(rng):
     assert got == int(jcrc.crc32_bytes(data)) == tframe.fcs32(data.tobytes())
 
 
+@pytest.mark.parametrize("nbits", [32, 1, 7, 48, 257])
+def test_crc16_bits_matches_jax(nbits, rng):
+    """The 11b PLCP CRC-16 equals the JAX package's ``crc16_bits`` and both
+    packages' ``crc16_plcp`` on random 32-bit headers and on shorter and
+    longer bit vectors, four draws each."""
+    from sora_tpu.phy import dot11b_common as JB
+    from sora_tpu_torch.phy import dot11b_common as TB
+
+    for _ in range(4):
+        bits = rng.integers(0, 2, nbits, dtype=np.uint8)
+        got = tcrc.crc16_bits(bits)
+        assert got == jcrc.crc16_bits(bits) == JB.crc16_plcp(bits)
+        assert got == TB.crc16_plcp(bits)
+
+
 @pytest.mark.parametrize("seed", [1, 0x2A, 0x7F])
 def test_scramble_sequence_matches_jax(seed):
     np.testing.assert_array_equal(tscr.sequence(400, seed).numpy(),
