@@ -30,7 +30,10 @@ shared library with a C interface (loaded with ctypes) under ``_build/``
 at first use, and rebuilt when the source is newer.  :func:`decode_blocks`
 launches it for CUDA tensors and takes :func:`decode_blocks_reference`
 only for CPU tensors; a CUDA call with no nvcc, a failed build or a
-launch error raises.  ``LAUNCHES`` counts the kernel's launches.
+launch error raises.  ``LAUNCHES`` counts the kernel's launches; while
+a span records (``util.spans``) the counter ``viterbi.steps_run`` adds
+the trellis steps the windows compute, rows x windows x (block + 2 x
+overlap).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from sora_tpu_torch.phy import common as C
+from sora_tpu_torch.util import spans
 
 SOFT_SCALE = 8.0
 SOFT_CLAMP = 7.0
@@ -250,6 +254,10 @@ def decode_blocks(soft_ab: torch.Tensor, block: int = 512,
     if soft_ab.dim() < 2 or soft_ab.shape[-1] != 2:
         raise ValueError(f"decode_blocks: soft_ab must be (..., T, 2), "
                          f"got {tuple(soft_ab.shape)}")
+    if spans.recording():
+        T = soft_ab.shape[-2]
+        spans.count("viterbi.steps_run", soft_ab.shape[:-2].numel()
+                    * -(-T // block) * (block + 2 * overlap))
     if soft_ab.device.type == "cpu":
         return decode_blocks_reference(soft_ab, block, overlap, terminated)
     if soft_ab.device.type != "cuda":

@@ -51,6 +51,7 @@ from sora_tpu_torch.phy import frontend as fe
 from sora_tpu_torch.phy.dot11a import rx as arx
 from sora_tpu_torch.phy.dot11b import rx as brx
 from sora_tpu_torch.phy.dot11n import rx as nrx
+from sora_tpu_torch.util import spans
 from sora_tpu_torch.util.xfer import resolve_device
 
 # halo: lag-16 autocorr + 64-wide window + 128-long LTS correlation
@@ -233,13 +234,19 @@ def _rows_to_blocks(xr: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
 def gather_rows(tree, mesh: DeviceMesh):
     """Every rank's row chunk, all-gathered in row order: the global
     result (tensors in a dict / tuple / list tree).  The counterpart of
-    fetching a sharded ``jax.Array``; None outside the mesh."""
+    fetching a sharded ``jax.Array``; None outside the mesh.  Runs in the
+    span ``shard.gather`` (``util.spans``)."""
     if mesh.get_coordinate() is None:
         return None
+    with spans.span("shard.gather", mesh.device_type):
+        return _gather_tree(tree, mesh)
+
+
+def _gather_tree(tree, mesh: DeviceMesh):
     if isinstance(tree, dict):
-        return {k: gather_rows(v, mesh) for k, v in tree.items()}
+        return {k: _gather_tree(v, mesh) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(gather_rows(v, mesh) for v in tree)
+        return type(tree)(_gather_tree(v, mesh) for v in tree)
     dp, sp = mesh.mesh.shape
     v = _gather(tree, mesh.get_group("sp"), sp)
     v = v.reshape((sp * tree.shape[0],) + tuple(tree.shape[1:]))
@@ -468,22 +475,29 @@ def rx_pipeline_sharded(x, mesh: DeviceMesh, rate_mbps: int,
     x: the global (B, N) complex64 batch, host or device (raw 40 Msps
     with ``input_rate="40m"``: the front end runs first), or this rank's
     :class:`Shard`; B must divide by the rank count.  Returns this rank's
-    row chunk of the dict psdu, ok, fcs_ok, length, snr_db."""
-    got = _detect_rows(x, mesh, device, input_rate, _sync_block)
-    if got is None:
-        return None
-    xd, l1, cf, _, _ = got
-    rate = C.RATES[rate_mbps]
-    nsym = arx.max_symbols(rate, max_psdu)
-    eq, snr_db, wgt = arx.extract_symbols(xd, l1, cf, nsym,
-                                          return_weights=True)
-    rate_bits, length, sig_ok = arx.decode_signal(eq[:, 0, :])
-    length = torch.clamp(length, 0, max_psdu).to(torch.int32)
-    psdu, fcs_ok, _ = arx.decode_data(eq[:, 1:, :], length, rate_mbps, wgt)
-    ok = sig_ok & (rate_bits == rate.rate_bits) & fcs_ok
-    u8 = lambda v: v.to(torch.uint8)
-    return {"psdu": psdu, "ok": u8(ok), "fcs_ok": u8(fcs_ok),
-            "length": length, "snr_db": snr_db}
+    row chunk of the dict psdu, ok, fcs_ok, length, snr_db.  Runs in the
+    span ``rx.call`` with the stages of ``phy.dot11a.rx.rx_pipeline``;
+    ``rx.sync`` holds the sharded detection and the reshard."""
+    with spans.span("rx.call", device or "cuda"):
+        spans.stage("rx.sync")
+        got = _detect_rows(x, mesh, device, input_rate, _sync_block)
+        if got is None:
+            return None
+        xd, l1, cf, _, _ = got
+        rate = C.RATES[rate_mbps]
+        nsym = arx.max_symbols(rate, max_psdu)
+        spans.stage("rx.equalize")
+        eq, snr_db, wgt = arx.extract_symbols(xd, l1, cf, nsym,
+                                              return_weights=True)
+        spans.stage("rx.demap")
+        rate_bits, length, sig_ok = arx.decode_signal(eq[:, 0, :])
+        length = torch.clamp(length, 0, max_psdu).to(torch.int32)
+        psdu, fcs_ok, _ = arx.decode_data(eq[:, 1:, :], length, rate_mbps,
+                                          wgt)
+        ok = sig_ok & (rate_bits == rate.rate_bits) & fcs_ok
+        u8 = lambda v: v.to(torch.uint8)
+        return {"psdu": psdu, "ok": u8(ok), "fcs_ok": u8(fcs_ok),
+                "length": length, "snr_db": snr_db}
 
 
 def rx_pipeline_sharded_auto(x, mesh: DeviceMesh, max_psdu: int = 256,

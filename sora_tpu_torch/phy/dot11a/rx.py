@@ -39,6 +39,7 @@ from sora_tpu_torch.dsp import scramble as dscr
 from sora_tpu_torch.dsp import viterbi as dvit
 from sora_tpu_torch.phy import common as C
 from sora_tpu_torch.phy import frontend as fe
+from sora_tpu_torch.util import spans
 from sora_tpu_torch.util.xfer import device_complex
 
 _LTS_SYM = np.asarray(C.LTS_TIME_SYM, dtype=np.complex64)
@@ -520,7 +521,9 @@ def decode_data(eq: torch.Tensor, length: torch.Tensor, rate_mbps: int,
     rate = C.RATES[rate_mbps]
     t_steps = eq.shape[1] * rate.ndbps
     ab = data_soft(eq, length, rate_mbps, weights)
+    spans.stage("rx.viterbi")
     bits = dvit.decode_auto(ab, terminated=True)
+    spans.stage("rx.tail")
     psdu, fcs_ok = _finish_frame(bits, length, t_steps)
     nbits = 16 + 8 * length.to(torch.int32) + 6
     return psdu, fcs_ok, nbits
@@ -650,8 +653,10 @@ def auto_tail(eq: torch.Tensor, det: torch.Tensor, max_psdu: int,
     eq: (B, nsym_max+1, 48) equalized carriers (row 0 = SIGNAL); det:
     (B,) carrier-sense metric.  With ``lts1`` and ``n_samples`` the dict
     also holds ``truncated``: the frame runs past the window's end (it
-    decodes from the next overlapping window).
+    decodes from the next overlapping window).  Inside a recording span
+    it runs as the stages ``rx.demap``, ``rx.viterbi`` and ``rx.tail``.
     """
+    spans.stage("rx.demap")
     k = _auto_gather(max_psdu, nsym_cap, eq.device)
     rate_bits, length, sig_ok = decode_signal(eq[:, 0, :])
     length = torch.clamp(length, 0, max_psdu).to(torch.int32)
@@ -661,7 +666,9 @@ def auto_tail(eq: torch.Tensor, det: torch.Tensor, max_psdu: int,
     rate_idx = k["bits_to_idx"][rb]
     ab = auto_soft(eq[:, 1:, :], length, rate_idx, max_psdu, nsym_cap,
                    weights)
+    spans.stage("rx.viterbi")
     bits = dvit.decode_auto(ab, terminated=True)
+    spans.stage("rx.tail")
     psdu, fcs_ok = _finish_frame(bits, length, k["t_max"])
     cs_ok = det >= det_threshold
     ok = cs_ok & sig_ok & k["known"][rb] & fcs_ok
@@ -699,42 +706,47 @@ def rx_pipeline_auto(x: torch.Tensor, max_psdu: int = MAX_PSDU,
 
     x: (B, N) complex64 streams (raw 40 or 44 Msps with ``input_rate``
     "40m" or "44m").  Returns the :func:`rx_pipeline` dict plus rate_mbps
-    int32 per row.  Makes no host sync.
+    int32 per row.  Makes no host sync.  Runs in the span ``rx.call``
+    with the stages of :func:`rx_pipeline` (``util.spans``).
     """
-    x = fe.ofdm_frontend(x, input_rate)
-    # static window capacity bound: extract_symbols needs lts1 + 128 +
-    # 80*(nsym+1) <= N, taken at the earliest anchor lts1 = 0
-    nsym_win = max(1, (int(x.shape[1]) - 208) // 80)
-    mr = max([r for r in _RATE_LIST if r <= min_rate_mbps] or [6])
-    nsym_cap = min(nsym_win, max_symbols(C.RATES[mr], max_psdu))
-    nsym_max = _auto_tables(max_psdu, nsym_cap)[3]
-    src = None
-    n_cand = None
-    if n_frames > 1:
-        B = x.shape[0]
-        lts1, cfo, det = synchronize_multi(x, n_frames, det_threshold)
-        n_cand = (det >= det_threshold).sum().to(torch.int32)
-        if 0 < n_decode < B * n_frames:
-            det, idx = torch.topk(det, n_decode)
-            src = idx.to(torch.int32)
-            lts1 = lts1[idx]
-            cfo = cfo[idx]
-            x = x[idx // n_frames]
+    with spans.span("rx.call", x):
+        spans.stage("rx.sync")
+        x = fe.ofdm_frontend(x, input_rate)
+        # static window capacity bound: extract_symbols needs lts1 + 128
+        # + 80*(nsym+1) <= N, taken at the earliest anchor lts1 = 0
+        nsym_win = max(1, (int(x.shape[1]) - 208) // 80)
+        mr = max([r for r in _RATE_LIST if r <= min_rate_mbps] or [6])
+        nsym_cap = min(nsym_win, max_symbols(C.RATES[mr], max_psdu))
+        nsym_max = _auto_tables(max_psdu, nsym_cap)[3]
+        src = None
+        n_cand = None
+        if n_frames > 1:
+            B = x.shape[0]
+            lts1, cfo, det = synchronize_multi(x, n_frames, det_threshold)
+            n_cand = (det >= det_threshold).sum().to(torch.int32)
+            if 0 < n_decode < B * n_frames:
+                det, idx = torch.topk(det, n_decode)
+                src = idx.to(torch.int32)
+                lts1 = lts1[idx]
+                cfo = cfo[idx]
+                x = x[idx // n_frames]
+            else:
+                rows = torch.arange(B * n_frames,
+                                    device=x.device) // n_frames
+                x = x[rows]
         else:
-            rows = torch.arange(B * n_frames, device=x.device) // n_frames
-            x = x[rows]
-    else:
-        lts1, cfo, det = synchronize(x)
-    eq, snr_db, wgt = extract_symbols(x, lts1, cfo, nsym_max,
-                                      return_weights=True)
-    out = auto_tail(eq, det, max_psdu, nsym_cap, det_threshold, lts1=lts1,
-                    n_samples=int(x.shape[1]), weights=wgt)
-    out.update({"snr_db": snr_db, "lts1": lts1, "cfo": cfo})
-    if src is not None:
-        out["src"] = src
-    if n_cand is not None:
-        out["n_cand"] = n_cand
-    return out
+            lts1, cfo, det = synchronize(x)
+        spans.stage("rx.equalize")
+        eq, snr_db, wgt = extract_symbols(x, lts1, cfo, nsym_max,
+                                          return_weights=True)
+        out = auto_tail(eq, det, max_psdu, nsym_cap, det_threshold,
+                        lts1=lts1, n_samples=int(x.shape[1]), weights=wgt)
+        out.update({"snr_db": snr_db, "lts1": lts1, "cfo": cfo})
+        if src is not None:
+            out["src"] = src
+        if n_cand is not None:
+            out["n_cand"] = n_cand
+        return out
 
 
 # =============================================================================
@@ -756,30 +768,40 @@ def rx_pipeline(x: torch.Tensor, rate_mbps: int, max_psdu: int = MAX_PSDU,
     length (B,) int32, det/snr_db/cfo (B,) float32 and lts1 (B,) int32 —
     the analogue of the reference's MAC11a_Receive poll loop body
     (mac.cpp:190-280).
+
+    The call runs in the span ``rx.call`` (``util.spans``), as the stages
+    ``rx.sync`` (front end, detection), ``rx.equalize``, ``rx.demap``
+    (SIGNAL and the data soft bits), ``rx.viterbi`` and ``rx.tail``
+    (descramble, bytes, CRC, flags).
     """
-    x = fe.ofdm_frontend(x, input_rate)
-    rate = C.RATES[rate_mbps]
-    # cap the trellis at what the window can physically hold (the
-    # lts1 = 0 upper bound (N - 208) // 80): longer frames cannot decode
-    # from this window anyway
-    N = int(x.shape[1])
-    nsym_win = max(1, (N - 208) // 80)
-    nsym = min(max_symbols(rate, max_psdu), nsym_win)
-    lts1, cfo, det = synchronize(x)
-    eq, snr_db, wgt = extract_symbols(x, lts1, cfo, nsym,
-                                      return_weights=True)
-    rate_bits, length, sig_ok = decode_signal(eq[:, 0, :])
-    length = torch.clamp(length, 0, max_psdu).to(torch.int32)
-    psdu, fcs_ok, nbits = decode_data(eq[:, 1:, :], length, rate_mbps, wgt)
-    cs_ok = det > CS_DET_THRESHOLD
-    ok = cs_ok & sig_ok & (rate_bits == rate.rate_bits) & fcs_ok
-    nsym_actual = (nbits + rate.ndbps - 1) // rate.ndbps
-    truncated = (lts1 + 128 + 80 * (nsym_actual + 1)) > N
-    u8 = lambda v: v.to(torch.uint8)
-    return {"psdu": psdu, "fcs_ok": u8(fcs_ok), "sig_ok": u8(sig_ok),
-            "ok": u8(ok), "cs_ok": u8(cs_ok), "det": det,
-            "truncated": u8(truncated), "length": length,
-            "snr_db": snr_db, "lts1": lts1, "cfo": cfo}
+    with spans.span("rx.call", x):
+        spans.stage("rx.sync")
+        x = fe.ofdm_frontend(x, input_rate)
+        rate = C.RATES[rate_mbps]
+        # cap the trellis at what the window can physically hold (the
+        # lts1 = 0 upper bound (N - 208) // 80): longer frames cannot
+        # decode from this window anyway
+        N = int(x.shape[1])
+        nsym_win = max(1, (N - 208) // 80)
+        nsym = min(max_symbols(rate, max_psdu), nsym_win)
+        lts1, cfo, det = synchronize(x)
+        spans.stage("rx.equalize")
+        eq, snr_db, wgt = extract_symbols(x, lts1, cfo, nsym,
+                                          return_weights=True)
+        spans.stage("rx.demap")
+        rate_bits, length, sig_ok = decode_signal(eq[:, 0, :])
+        length = torch.clamp(length, 0, max_psdu).to(torch.int32)
+        psdu, fcs_ok, nbits = decode_data(eq[:, 1:, :], length, rate_mbps,
+                                          wgt)
+        cs_ok = det > CS_DET_THRESHOLD
+        ok = cs_ok & sig_ok & (rate_bits == rate.rate_bits) & fcs_ok
+        nsym_actual = (nbits + rate.ndbps - 1) // rate.ndbps
+        truncated = (lts1 + 128 + 80 * (nsym_actual + 1)) > N
+        u8 = lambda v: v.to(torch.uint8)
+        return {"psdu": psdu, "fcs_ok": u8(fcs_ok), "sig_ok": u8(sig_ok),
+                "ok": u8(ok), "cs_ok": u8(cs_ok), "det": det,
+                "truncated": u8(truncated), "length": length,
+                "snr_db": snr_db, "lts1": lts1, "cfo": cfo}
 
 
 # =============================================================================
