@@ -6,8 +6,9 @@
 Phases (any failure raises and the script exits nonzero):
 
 1. card details (name and power limit from nvidia-smi, torch and CUDA);
-2. build of the Viterbi kernel ``sora_tpu_torch/csrc/viterbi.cu`` with nvcc
-   for sm_90a (forced, from the sources in the checkout);
+2. build of the Viterbi kernel ``sora_tpu_torch/csrc/viterbi.cu`` and the
+   correlator ``csrc/correlate.cu`` with nvcc for sm_90a (forced, from the
+   sources in the checkout);
 3. the kernel against its plain PyTorch version on the card, bit for bit,
    in the three window regimes of ``decode_auto``, ``terminated`` both
    ways, on noisy codewords (sigma 0.25 and 0.9) and on tie-heavy input
@@ -187,7 +188,15 @@ Phases (any failure raises and the script exits nonzero):
    ``tools.node_soak --phy b`` (0 launches) and ``--phy a --channel``
    (1 launch for the warm-up and 1 per decoded batch) for 10 s each: exit
    0, frames above 0, crc_fail at most 2% of them;
-32. a JSON line of the kernels, the card line, and as the last line
+32. the correlator kernel (``csrc/correlate.cu``) against its plain loop
+   on the card at every caller's shape ((2048, 5040), (11264, 768) and
+   (4096, 5040) with the 64-value LTS, the 11n sync's (4096, 3120) B*A
+   rows, (2048, 10512) with the 11-chip Barker): no output differs, the
+   argmax of the receivers' metric equal; its time (replays of a CUDA
+   graph of 50 launches), its bound and the loop's time; exactly 1
+   launch per call of rx_pipeline, rx_pipeline_auto, the 11n receivers'
+   sync and the 11b receivers;
+33. a JSON line of the kernels, the card line, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Every path is driven with the kernel's launch counter set to 0 just before
@@ -2896,6 +2905,134 @@ def robustness_phase(torch, dev, vc, parity, int32_ops_per_s) -> dict:
             "node_soak": soaks, "s": wall}
 
 
+# ---------------------------------------------------------------------------
+# the correlator kernel (phase 32)
+# ---------------------------------------------------------------------------
+
+# every caller's shape: (name, rows, samples a row, pattern length)
+CORR_SHAPES = (
+    ("a54-sat rx_pipeline", 2048, 5040, 64),
+    ("a-node-air synchronize_multi", 11264, 768, 64),
+    ("a54-sat-dp4 rank _lock", 4096, 5040, 64),
+    ("11n sync, B*A rows", 4096, 3120, 64),
+    ("11b Barker", 2048, 10512, 11),
+)
+# correlator launches a call of each path (one sync a call)
+CORR_LAUNCHES = {"rx_pipeline": 1, "rx_pipeline_auto": 1,
+                 "rx_pipeline 11n MCS 15": 1, "rx_pipeline_auto 11n": 1,
+                 "rx_pipeline_auto 11b": 1, "rx_pipeline 11b": 1}
+FP32_FLOPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
+
+
+def correlate_rows(torch, dev, rows: int, n: int, w: int, seed: int):
+    """rows x n complex64 on the card: unit complex noise plus, for w = 64,
+    the two LTS repeats at a random offset (amplitude 4, random phase), or
+    for w = 11 random BPSK symbols spread by the Barker code (amplitude 2)
+    under the same noise."""
+    from sora_tpu_torch.phy import common as PC
+    from sora_tpu_torch.phy.dot11b import rx as brx
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn(rows, n, dtype=torch.complex64, device=dev, generator=g)
+    rot = torch.exp(2j * np.pi * torch.rand(rows, 1, device=dev,
+                                           generator=g)).to(torch.complex64)
+    if w == 11:
+        sym = torch.randint(0, 2, (rows, -(-n // 11), 1), device=dev,
+                            generator=g) * 2.0 - 1.0
+        barker = torch.as_tensor(brx._BARKER.real, device=dev)
+        chips = (sym * barker).reshape(rows, -1)[:, :n]
+        return x + 2.0 * rot * chips
+    lts = torch.as_tensor(np.tile(np.asarray(PC.LTS_TIME_SYM, np.complex64),
+                                  2), device=dev)
+    off = torch.randint(0, n - 160, (rows, 1), device=dev, generator=g)
+    pos = torch.arange(n, device=dev)[None, :] - off - 32
+    inside = (pos >= 0) & (pos < 128)
+    return x + torch.where(inside, 4.0 * rot * lts[pos.clamp(0, 127)], 0)
+
+
+def correlate_metric(c, w: int):
+    """What the receivers take the argmax of: |c| at lags 0 and 64 summed
+    for the LTS, |c| for the Barker."""
+    a = c.abs()
+    return a[:, :-64] + a[:, 64:] if w == 64 else a
+
+
+def correlate_phase(torch, dev, cc, xs: dict) -> dict:
+    """Phase 32: the correlator kernel (csrc/correlate.cu) against its
+    plain loop on the card at every caller's shape, bit for bit and in
+    the argmax of the receivers' metric; its time (graph replay), its
+    bound and the loop's time; one launch per receiver call on the paths
+    the earlier phases drove."""
+    from sora_tpu_torch.dsp import filters as df
+    from sora_tpu_torch.phy.dot11a import rx as arx
+    from sora_tpu_torch.phy.dot11b import rx as brx
+    from sora_tpu_torch.phy.dot11n import rx as nrx
+
+    shapes = []
+    for i, (name, rows, n, w) in enumerate(CORR_SHAPES):
+        x = correlate_rows(torch, dev, rows, n, w, seed=100 + i)
+        p = nrx._LTS_SYM if w == 64 else brx._BARKER
+        got = df.correlate_stream(x, p)
+        want = df.correlate_stream_reference(x, p)
+        bad = int((got != want).sum())
+        gap = float((got - want).abs().max())
+        same_arg = bool(torch.equal(correlate_metric(got, w).argmax(-1),
+                                    correlate_metric(want, w).argmax(-1)))
+        if bad or not same_arg:
+            raise AssertionError(f"correlator {name}: {bad} outputs differ "
+                                 f"from the loop (largest gap {gap}), "
+                                 f"argmax equal {same_arg}")
+        ms = graph_ms(lambda: df.correlate_stream(x, p), 50)
+        plain = cuda_ms(lambda: df.correlate_stream_reference(x, p), 3)
+        nwin = n - w + 1
+        nbytes = rows * (n + nwin) * 8
+        flops = rows * nwin * w * 8            # a complex MAC: 4 FMA
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, flops_ms)
+        shapes.append({"path": name, "shape": [rows, n], "taps": w,
+                       "mismatches": bad, "ms": ms, "plain_ms": plain,
+                       "bound_ms": bound, "bytes_ms": bytes_ms,
+                       "flops_ms": flops_ms,
+                       "bound_by": "bytes" if bytes_ms > flops_ms
+                       else "fp32"})
+        print(f"correlator kernel {name} ({rows}, {n}) x {w} taps: 0 of "
+              f"{rows * nwin} outputs differ from the plain loop on the "
+              f"card, argmax of the receiver's metric equal; {ms:.4f} ms "
+              f"(graph replay); plain loop {plain:.3f} ms; bound "
+              f"{bound:.4f} ms (fp32 {flops / 1e9:.3f} GFLOP = "
+              f"{flops_ms:.4f} ms; {nbytes / 1e6:.1f} MB = {bytes_ms:.4f} "
+              f"ms); time/bound {ms / bound:.2f}", flush=True)
+
+    calls = {
+        "rx_pipeline": lambda: arx.rx_pipeline(xs["a"], RATE,
+                                               max_psdu=MAX_PSDU),
+        "rx_pipeline_auto": lambda: arx.rx_pipeline_auto(
+            xs["auto"], max_psdu=MAX_PSDU),
+        "rx_pipeline 11n MCS 15": lambda: nrx.rx_pipeline(
+            xs["n15"], 15, max_psdu=MAX_PSDU),
+        "rx_pipeline_auto 11n": lambda: nrx.rx_pipeline_auto(
+            xs["nauto"], max_psdu=MAX_PSDU),
+        "rx_pipeline_auto 11b": lambda: brx.rx_pipeline_auto(
+            xs["b"], max_psdu=B11_MAX_PSDU),
+        "rx_pipeline 11b": lambda: brx.rx_pipeline(
+            xs["b"], 11, max_psdu=B11_MAX_PSDU)}
+    launches = {}
+    for name, call in calls.items():
+        cc.LAUNCHES = 0
+        call()
+        torch.cuda.synchronize()
+        launches[name] = cc.LAUNCHES
+        if launches[name] != CORR_LAUNCHES[name]:
+            raise AssertionError(f"{name} launched the correlator "
+                                 f"{launches[name]} times, expected "
+                                 f"{CORR_LAUNCHES[name]}")
+    print("correlator launches a call: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    return {"shapes": shapes, "launches_by_path": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2906,6 +3043,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from sora_tpu_torch.mac.frame import check_fcs
+    from sora_tpu_torch.ops import correlate_cuda as cc
     from sora_tpu_torch.ops import viterbi_cuda as vc
     from sora_tpu_torch.phy.dot11a import rx
     from sora_tpu_torch.util.xfer import device_complex, fetch
@@ -2924,6 +3062,13 @@ def main() -> int:
     log = vc.build(force=True)
     build_s = time.perf_counter() - t0
     print(f"build viterbi.cu: {build_s:.2f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+    t0 = time.perf_counter()
+    log = cc.build(force=True)
+    print(f"build correlate.cu: {time.perf_counter() - t0:.2f} s",
+          flush=True)
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
@@ -3138,9 +3283,9 @@ def main() -> int:
     paths["11b node"] = b11_node["launches"]
 
     # ---- 22. the sharded receivers on a (1, 1) NCCL mesh -------------------
-    shard = sharded_phase(torch, dev, vc, parity, {
-        "a": xd, "auto": mixed.pop("x"), "40m": x40, "n15": ht15.pop("x"),
-        "nauto": ht_auto.pop("x"), "b": b11.pop("x")})
+    xs = {"a": xd, "auto": mixed.pop("x"), "40m": x40, "n15": ht15.pop("x"),
+          "nauto": ht_auto.pop("x"), "b": b11.pop("x")}
+    shard = sharded_phase(torch, dev, vc, parity, xs)
     for name, r in shard["paths"].items():
         paths[name] = r["launches"]
     for d in (ht7, ht_auto1):
@@ -3180,6 +3325,10 @@ def main() -> int:
         paths[f"robustness garbage {name}"] = r["launches"]
     for name, r in robust["node_soak"].items():
         paths[f"tools.node_soak {name}"] = r["launches"]
+
+    # ---- 32. the correlator kernel ---------------------------------------
+    corr = correlate_phase(torch, dev, cc, xs)
+    del xs
 
     ht_shapes = [
         {"path": "rx_pipeline MCS 15 HT-SIG", **ht15["kernel"]["htsig"],
@@ -3222,7 +3371,8 @@ def main() -> int:
                "sharded": shard, "tvws": tv, "sniffer": sniff,
                "demod11": dm, "sdl": sdl, "speanalyzer": spe,
                "node_dump": ndump, "sweep": sweep, "ping_over_air": ping,
-               "robustness": robust, "kernel_launches_by_path": paths}
+               "robustness": robust, "kernel_launches_by_path": paths,
+               "correlator": corr}
     print("summary " + json.dumps(summary), flush=True)
     kernels = {"kernels": [{
         "name": "viterbi_radix4", "route": "cuda",
@@ -3266,7 +3416,19 @@ def main() -> int:
                  "shape", "block", "overlap", "ms", "plain_ms", "bound_ms",
                  "bound_by", "launches_per_decode")}}
             for phy, what in (("a", "11a +20 ppm MTU"),
-                              ("n", "11n +20 ppm MTU"))]}]}
+                              ("n", "11n +20 ppm MTU"))]}, {
+        "name": "correlate", "route": "cuda",
+        "source": "sora_tpu_torch/csrc/correlate.cu",
+        "replaces": None,
+        "jax_counterpart": "sora_tpu/dsp/filters.py::correlate_stream "
+                           "(jnp code that XLA fuses)",
+        "design": "row x output-tile grid, the tile and its halo loaded "
+                  "once into padded shared memory, 8 outputs a thread in "
+                  "registers, taps by value in the parameters, the loop's "
+                  "rounding and order",
+        "parity": "exact", "library_ms": None,
+        "shapes": corr["shapes"],
+        "launches_by_path": corr["launches_by_path"]}]}
     print(json.dumps(kernels), flush=True)
     torch.distributed.destroy_process_group()
     print(card_line(), flush=True)

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sora_tpu_torch.ops import correlate_cuda
+
 
 def _pad_last(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """Zero-pad the last axis by ``lo`` in front and ``hi`` behind."""
@@ -49,9 +51,22 @@ def correlate(x: torch.Tensor, pattern) -> torch.Tensor:
 
 
 def correlate_stream(x: torch.Tensor, pattern) -> torch.Tensor:
-    """Like :func:`correlate` but O(N) memory: accumulates len(pattern)
-    statically shifted scaled copies instead of unfolding windows.  Use for
-    long streams (packet search over the whole RX buffer)."""
+    """Like :func:`correlate` but O(N) memory, for long streams (packet
+    search over the whole RX buffer): (..., N - len(pattern) + 1) in x's
+    dtype.  A CUDA tensor launches the hand-written kernel
+    (``ops/correlate_cuda.py``: complex64, patterns of 64 or 11 values; it
+    raises on anything else); any other runs
+    :func:`correlate_stream_reference`, whose arithmetic the kernel
+    repeats bit for bit."""
+    if x.device.type == "cuda":
+        return correlate_cuda.correlate(x, pattern)
+    return correlate_stream_reference(x, pattern)
+
+
+def correlate_stream_reference(x: torch.Tensor, pattern) -> torch.Tensor:
+    """The plain version of :func:`correlate_stream`: accumulates
+    len(pattern) statically shifted scaled copies, starting from 0 and in
+    tap order, instead of unfolding windows."""
     pc = np.conj(np.asarray(pattern)).astype(np.complex64)
     w = len(pc)
     nwin = x.shape[-1] - w + 1

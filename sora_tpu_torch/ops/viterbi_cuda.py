@@ -194,35 +194,38 @@ def decode_blocks_reference(soft_ab: torch.Tensor, block: int = 512,
 # =============================================================================
 
 
-def _nvcc() -> str:
+def _nvcc(source: Path = SOURCE) -> str:
     found = shutil.which("nvcc")
     if found:
         return found
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
-    raise RuntimeError("sora_tpu_torch: nvcc not found; the Viterbi kernel "
-                       f"({SOURCE}) cannot be built")
+    raise RuntimeError(f"sora_tpu_torch: nvcc not found; the kernel "
+                       f"({source}) cannot be built")
 
 
-def build(force: bool = False) -> str:
-    """Compile csrc/viterbi.cu into _build/libsora_viterbi.so when the
-    library is missing or older than the source (or ``force``).  Returns
-    nvcc's output (ptxas register and shared-memory report), or "" when
-    the library was current.  Raises when nvcc is missing or fails."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+def build(force: bool = False, source: Path = SOURCE,
+          library: Path = LIBRARY) -> str:
+    """Compile ``source`` (csrc/viterbi.cu) into ``library``
+    (_build/libsora_viterbi.so) when the library is missing or older than
+    the source (or ``force``).  Returns nvcc's output (ptxas register and
+    shared-memory report), or "" when the library was current.  Raises
+    when nvcc is missing or fails.  ``ops/correlate_cuda.py`` builds its
+    kernel through it too."""
+    if (not force and library.exists()
+            and library.stat().st_mtime >= source.stat().st_mtime):
         return ""
-    nvcc = _nvcc()
+    nvcc = _nvcc(source)
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)          # atomic: concurrent builds stay safe
+    os.replace(tmp, library)          # atomic: concurrent builds stay safe
     return proc.stdout + proc.stderr
 
 
