@@ -1,10 +1,11 @@
 """Readings for the limits of ``correct`` and sizing sweeps, in one
 process on the card (the benchmark's runs never call it).
 
-    python3 -m benchmark.calibrate readings --workload a54-sat \
+    python3 -m benchmark.calibrate readings --workload a54-sat-8k \
         --seeds 1,2,3 --control-seeds 1,2,3 --seconds 3
-    python3 -m benchmark.calibrate sweep --workload a54-sat \
-        --streams 512,1024,2048,4096 --seconds 5
+    python3 -m benchmark.calibrate sweep --workload a54-sat-8k \
+        --streams 2048,4096,8192 --seconds 5
+    python3 -m benchmark.calibrate split --workload a54-sat-8k --calls 250
 
 ``readings`` runs the cell as a run does (a short window at the cell's
 own size and load, the judged batches held to the reference) once per
@@ -12,7 +13,12 @@ seed and prints each seed's numbers; then, per control seed, puts the
 reference in the program's place on every batch of the pool, in TF32
 products and in bfloat16, and prints the numbers the judge gives them.
 ``sweep`` runs the cell at other stream counts and prints the window's
-rate, the traced idle share and the peak memory.  One JSON line each.
+rate, the traced idle share and the peak memory.  ``split`` says who
+leads at the cell's own size and load, on one card (a mesh cell's one
+card's rows through its entry on a (1, 1) mesh): the host's issue ms a
+call with the program's spans off, then the device ms a call of each of
+its spans inside ``spans.capture()`` (no profiler), ``rounds`` times.
+One JSON line each.
 """
 
 from __future__ import annotations
@@ -80,6 +86,50 @@ def sweep(a) -> None:
         print(json.dumps(out), flush=True)
 
 
+def split(a) -> None:
+    from benchmark import affinity
+
+    affinity.pin(0, 1, run.CPUS)
+    import numpy as np
+    import torch
+    from benchmark import generator as G
+    from sora_tpu_torch.util import spans
+
+    cell = run.load_cell(a.workload)
+    mix, mesh, dev = dict(cell.mix), None, torch.device("cuda")
+    if "mesh" in mix["entry"]:
+        from sora_tpu_torch.parallel import shard
+
+        m = mix["entry"]["mesh"]
+        mix["streams"] //= m["dp"] * m["sp"]
+        mesh = shard.make_mesh(1, dp=1, device="cuda")
+    entry = run.entry_point(mix, mesh, dev)
+    traffic = G.build(mix, cell.config, a.seed, dev)
+    inputs = [G.phy_module(cell.config).entry_input(b.x)
+              for b in traffic.batches]
+    if mesh is not None:
+        inputs, _ = run.shard_inputs(inputs, mesh)
+    loop = run.Loop(entry, inputs, traffic, torch, a.seed, 0)
+    loop.run(len(inputs) + run.DEPTH)
+    for k in range(a.rounds):
+        win = run.Window(t0=time.perf_counter())
+        loop.run(a.calls, win)
+        spans.reset()
+        with spans.capture():
+            loop.run(a.calls)
+        torch.cuda.synchronize()
+        dev_ms = {n: v["device_ms"] / v["calls"]
+                  for n, v in spans.totals()["spans"].items()
+                  if v["device_ms"] is not None}
+        host = 1e3 * float(np.mean(win.issue_s))
+        print(json.dumps({
+            "workload": a.workload, "round": k, "streams": mix["streams"],
+            "calls": a.calls, "host_issue_ms": host, "device_ms": dev_ms,
+            "device_over_host": dev_ms["rx.call"] / host,
+            "rx_msps": win.samples / (win.t_last - win.t0) / 1e6,
+            "card": run.card_line()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -93,8 +143,13 @@ def main(argv=None) -> int:
     s.add_argument("--streams", required=True)
     s.add_argument("--seed", type=int, default=1)
     s.add_argument("--seconds", type=float, default=5.0)
+    p = sub.add_parser("split")
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--calls", type=int, default=250)
+    p.add_argument("--rounds", type=int, default=2)
     a = ap.parse_args(argv)
-    {"readings": readings, "sweep": sweep}[a.cmd](a)
+    {"readings": readings, "sweep": sweep, "split": split}[a.cmd](a)
     return 0
 
 

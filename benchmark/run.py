@@ -14,8 +14,10 @@ metrics.  After the window the judged batches are held to the frames
 sent and the plain reference (:mod:`benchmark.judge`); each compared
 number and its limit go to the last lines of stderr and, under
 ``checks``, last in the result.  The result is the last line of stdout.
-A cell on several cards runs one process a card (``benchmark.ranks``):
-this process is rank 0; it times the window, fetches the rows the ranks
+Before CUDA starts, each process is set to the CPUs beside its card
+(``benchmark.affinity``).  A cell on several cards runs one process a
+card (``benchmark.ranks``, which bounds every wait of the ranks): this
+process is rank 0; it times the window, fetches the rows the ranks
 all-gather, and judges them.
 
 Exits nonzero without a result when CUDA or the cell's cards are
@@ -47,6 +49,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 CACHE = HERE / ".cache"
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "sora_tpu"})
+CPUS = os.sched_getaffinity(0)   # the CPUs the run was given
 DEPTH = 2                    # batches in flight
 
 
@@ -329,14 +332,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
              device=None, overrides: dict | None = None,
              root: Path = ROOT) -> dict:
     """One run; returns the result line's object.  ``device`` None is the
-    card (refused without CUDA or with fewer cards than the cell's);
+    card (refused without CUDA or with fewer cards than the cell's), and
+    the process then runs on the CPUs beside it (``benchmark.affinity``);
     ``overrides`` update the traffic mix (tests and calibration).  A cell
     on several chips starts one process per further card
-    (``benchmark.ranks``) and is rank 0 itself."""
+    (``benchmark.ranks``, which bounds every wait of the ranks) and is
+    rank 0 itself."""
     fixed_caches()
+    cell = load_cell(name, root)
+    if device is None:
+        from benchmark import affinity
+
+        affinity.pin(0, cell.chips, CPUS)
     import torch
 
-    cell = load_cell(name, root)
     if device is None:
         if not torch.cuda.is_available():
             raise SystemExit("CUDA is not available")
@@ -349,12 +358,21 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     from benchmark import ranks
 
     ctx = ranks.Context(0, cell.chips, ranks.free_port())
+    ranks.guard(seconds)
     workers = ranks.start(name, seed, seconds, trace, ctx, device,
-                          overrides, root)
+                          overrides, root, CPUS)
+    watch = ranks.Watch(workers)
     try:
-        return run_rank(cell, seed, seconds, trace, device, overrides, ctx)
-    finally:
-        ranks.reap(workers)
+        result = run_rank(cell, seed, seconds, trace, device, overrides,
+                          ctx)
+    except BaseException:
+        watch.close()
+        ranks.stop(workers, "rank 0 failed")
+        ranks.fail(0)
+    watch.close()
+    ranks.reap(workers)
+    ranks.unguard()
+    return result
 
 
 def run_rank(cell: Cell, seed: int, seconds: float, trace: bool, device,

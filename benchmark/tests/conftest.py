@@ -11,14 +11,14 @@ from benchmark import run
 
 # each cell's mix cut to a few streams for a CPU run
 TINY = {
-    "a54-sat": {"streams": 4, "pool": 2, "frames": 4, "judged": 2},
+    "a54-sat-8k": {"streams": 4, "pool": 2, "frames": 4, "judged": 2},
     "n15-sat": {"streams": 4, "pool": 2, "frames": 4, "judged": 2},
-    "a-node-air": {"streams": 8, "pool": 2, "frames": 4, "judged": 2,
-                   "entry": {"call": "sora_tpu_torch.phy.dot11a.rx:"
-                                     "rx_pipeline_auto",
-                             "kwargs": {"max_psdu": 256, "n_frames": 11,
-                                        "n_decode": 32,
-                                        "min_rate_mbps": 24}}},
+    "a-node-air-2k": {"streams": 8, "pool": 2, "frames": 4, "judged": 2,
+                      "entry": {"call": "sora_tpu_torch.phy.dot11a.rx:"
+                                        "rx_pipeline_auto",
+                                "kwargs": {"max_psdu": 256, "n_frames": 11,
+                                           "n_decode": 32,
+                                           "min_rate_mbps": 24}}},
 }
 
 
@@ -27,7 +27,7 @@ TINY = {
 # of BENCHMARK.json while the program decodes a few of its frames wrongly
 # (PERF.md, Open questions), so only its generator, reference and controls
 # are tested here
-ONE_CHIP = ["a54-sat", "a-node-air"]
+ONE_CHIP = ["a54-sat-8k", "a-node-air-2k"]
 FILES_ONLY = {"n15-sat": ("dot11n-ht20-2x2", "sat-n15-1500-unitary")}
 
 

@@ -66,7 +66,7 @@ def test_bf16_control_fails(cell, cpu):
 @pytest.mark.card
 @pytest.mark.parametrize("cell", sorted(TINY))
 def test_controls_fail_on_the_card(cell, card):
-    over = {"streams": 256 if cell != "a-node-air" else 64, "pool": 1}
+    over = {"streams": 256 if cell != "a-node-air-2k" else 64, "pool": 1}
     tf32, lim = _numbers(cell, R.TF32, card, over)
     assert tf32["snr_db_gap"] > lim["snr_db_gap"]
     bf16, _ = _numbers(cell, R.BF16, card, over)

@@ -76,3 +76,50 @@ def test_fault_is_caught(cell, fault, cpu, monkeypatch):
     r = run.run_cell(cell, 2 ** 31 + 3, 1.0, False, device=cpu,
                      overrides=TINY[cell])
     assert r["correct"] is (fault == "sound"), r["checks"]
+
+
+# A four-rank run on the CPU (gloo) whose rank 2 never joins the process
+# group or the ranks' store: rank 0's wait for it ends after WAIT_S, and
+# the run fails with rank 2's stack on stderr.
+_NEVER_JOINS = """
+import sys, time
+from benchmark import ranks
+
+def never_joins(*a, **k):
+    time.sleep(3600)
+
+ranks.Context.join = never_joins
+sys.exit(ranks.main(sys.argv[1:]))
+"""
+
+_RANK0 = """
+import sys
+from benchmark import ranks, run
+
+ranks.WAIT_S = {wait}
+real = ranks.rank_command
+ranks.rank_command = lambda r, args: (
+    [sys.executable, "-c", {stall!r}, "--rank", str(r), *args] if r == 2
+    else real(r, args))
+run.run_cell("a54-sat-8k-dp4", 2 ** 31 + 9, 1.0, False, device="cpu",
+             overrides={tiny!r})
+"""
+
+
+def test_a_rank_that_never_joins_fails_the_run_inside_its_bound():
+    import subprocess
+    import sys
+    import time
+
+    wait = 10.0
+    code = _RANK0.format(wait=wait, stall=_NEVER_JOINS,
+                         tiny={"streams": 8, "pool": 2, "frames": 4,
+                               "judged": 2})
+    t = time.monotonic()
+    r = subprocess.run([sys.executable, "-c", code], cwd=run.ROOT,
+                       capture_output=True, text=True, timeout=240)
+    took = time.monotonic() - t
+    assert r.returncode != 0 and r.stdout == ""
+    assert took < wait + 60, took
+    assert "rank 0 failed: the stacks of 3 live rank(s) follow" in r.stderr
+    assert "in never_joins" in r.stderr, r.stderr[-4000:]

@@ -41,12 +41,12 @@ def test_other_seed_same_work(cell, cpu):
 
 @pytest.mark.parametrize("seed", [-3, 0, 2 ** 31 + 5, 2 ** 70 + 1])
 def test_any_whole_number_seeds(seed, cpu):
-    t = _traffic("a54-sat", seed, cpu)
+    t = _traffic("a54-sat-8k", seed, cpu)
     assert torch.isfinite(t.batches[0].x.real).all()
 
 
 def test_frames_fit_their_streams(cpu):
-    t = _traffic("a54-sat", 1, cpu)
+    t = _traffic("a54-sat-8k", 1, cpu)
     b = t.batches[0]
     x = b.x[:, 0].abs()
     for r, s in enumerate(b.truth["starts"]):

@@ -17,14 +17,14 @@ def test_a_new_traffic_file_is_found_by_name(tmp_path, cpu):
     shutil.copytree(run.HERE, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
     spec = json.loads((run.ROOT / "BENCHMARK.json").read_text())
-    mix = json.loads((run.HERE / "traffic" / "sat-a54-1500.json")
+    mix = json.loads((run.HERE / "traffic" / "sat-a54-1500-8k.json")
                      .read_text())
     mix.update({"formats": [[24, 600]], "streams": 3, "pool": 1,
                 "frames": 2, "judged": 1})
     mix["entry"]["args"] = [24]
     (tmp_path / "benchmark" / "traffic" / "new-mix.json").write_text(
         json.dumps(mix))
-    shutil.copy(run.HERE / "limits" / "a54-sat.json",
+    shutil.copy(run.HERE / "limits" / "a54-sat-8k.json",
                 tmp_path / "benchmark" / "limits" / "new-cell.json")
     spec["workloads"].append({"name": "new-cell", "config": "dot11a-ofdm20",
                               "traffic": "new-mix", "chips": 1, "why": "x"})
@@ -45,7 +45,7 @@ def test_forbidden_modules_compare_whole_names(monkeypatch):
 
 def _cli(cwd, env=None):
     return subprocess.run(
-        [sys.executable, "-m", "benchmark.run", "--workload", "a54-sat",
+        [sys.executable, "-m", "benchmark.run", "--workload", "a54-sat-8k",
          "--seed", "1", "--seconds", "1", "--trace", "0"],
         cwd=cwd, capture_output=True, text=True, env=env, timeout=300)
 
@@ -64,8 +64,8 @@ def test_without_the_program_no_result(tmp_path):
     shutil.copy(run.ROOT / "BENCHMARK.json", tmp_path)
     code = ("import json, sys\n"
             "from benchmark import run\n"
-            "r = run.run_cell('a54-sat', 1, 0.5, False, device='cpu',\n"
-            f"                 overrides={TINY['a54-sat']!r})\n"
+            "r = run.run_cell('a54-sat-8k', 1, 0.5, False, device='cpu',\n"
+            f"                 overrides={TINY['a54-sat-8k']!r})\n"
             "print(json.dumps(r))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                        capture_output=True, text=True, timeout=300)

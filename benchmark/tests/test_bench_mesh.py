@@ -22,7 +22,7 @@ def _rank(rank, world, port, store_port, fault, q):
 
     if fault:
         shard.gather_rows = lambda tree, mesh: tree
-    cell = run.load_cell("a54-sat-dp4")
+    cell = run.load_cell("a54-sat-8k-dp4")
     ctx = ranks.Context(rank, world, port, store_port)
     r = run.run_rank(cell, 2 ** 31 + 9, 1.0, False, "cpu", TINY_DP4, ctx)
     if rank == 0:
@@ -33,7 +33,7 @@ def _rank(rank, world, port, store_port, fault, q):
 def test_mesh_run_and_exchange_left_out(fault):
     from benchmark import ranks
 
-    assert cell_parts("a54-sat-dp4")[1]["entry"]["mesh"]["dp"] == 4
+    assert cell_parts("a54-sat-8k-dp4")[1]["entry"]["mesh"]["dp"] == 4
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port, store_port = ranks.free_port(), ranks.free_port()

@@ -17,7 +17,8 @@ from benchmark.reference import ofdm as R
 from benchmark.tests.conftest import TINY, cell_parts
 
 
-@pytest.mark.parametrize("cell, golden", [("a54-sat", ga), ("n15-sat", gn)])
+@pytest.mark.parametrize("cell, golden", [("a54-sat-8k", ga),
+                                          ("n15-sat", gn)])
 def test_reference_agrees_with_golden(cell, golden, cpu):
     config, mix, _ = cell_parts(cell)
     mix = {**mix, **TINY[cell], "streams": 2, "pool": 1}
@@ -31,7 +32,7 @@ def test_reference_agrees_with_golden(cell, golden, cpu):
         assert est["lts1"][r] == lts1
         res = phy.demodulate(xr)
         assert res.ok and res.psdu == t.psdus[b.truth["fidx"][r]].tobytes()
-        if cell == "a54-sat":
+        if cell == "a54-sat-8k":
             assert abs(est["snr_db"][r] - res.snr_est_db) < 0.01
 
 
